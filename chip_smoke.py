@@ -8,23 +8,41 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 Phases (any failure raises and exits non-zero):
   1. device  - require CUDA; print the card's name and power limit; TF32 off.
-  2. build   - build the hand-written CUDA kernels from csrc/ (sm_90a).
-  3. kernels - each kernel vs its plain PyTorch version in bf16: the DiT's
-               (5, 1024, 32, 128) with RMS-normed q/k, the VAE's D=512 at its
-               encode and decode shapes, a ragged length with Lk != Lq, and
-               inputs whose headroom forces the online branch.
+  2. build   - build every hand-written CUDA kernel from csrc/ (sm_90a), one
+               nvcc per source, all started together; print ptxas's
+               registers and spills.
+  3. kernels - the bf16 attention kernels vs their plain PyTorch version:
+               the DiT's (5, 1024, 32, 128) with RMS-normed q/k, the VAE's
+               D=512 at its encode and decode shapes, a ragged length with
+               Lk != Lq, and inputs whose headroom forces the online branch.
   4. flagship attention (1, 28160, 32, 128): kernel time beside
                F.scaled_dot_product_attention (a yardstick the port never
                calls); output checked against the plain version on 2 heads.
-  5. main path - load_pipeline() at the full 7B DiT and CV8x8x8 VAE in bf16,
+  5. W8A8 matmul kernel vs its plain version at the DiT's three block
+               matmul shapes, per channel and g128, plus ragged M, g32 and
+               g512; timed beside torch._int_mm and bf16 F.linear.
+  6. int8 attention kernel vs its plain version (at the kernel's key tile)
+               and vs attention_xla, qk8 and qk8+pv8, at the DiT shape and a
+               ragged one; the flagship shape timed beside SDPA and the bf16
+               kernel, compared on 2 heads.
+  7. main path - load_pipeline() at the full 7B DiT and CV8x8x8 VAE in bf16,
                then inverse_render() of a seeded 512x512 image (5 passes
                batched, 15 steps, guidance 0); checks the outputs and that
                every attention call of the path launched the kernels.
-  6. reference - the same DiT forward and VAE encode with the plain
+  8. reference - the same DiT forward and VAE encode with the plain
                attention path, held against the kernel path.
-  7. profile - torch.profiler over one DiT forward at the main path's shape.
-  8. timings - each kernel, its plain version and the library call at the
-               main path's attention shapes.
+  9. profile - torch.profiler over one DiT forward at the main path's shape.
+  10. quantized main path - the same inverse_render() under
+               load_pipeline(quantize_int8=True, act_quant=True) (w8a8) and
+               with quant_group_size=128 (w8a8_g128): every block matmul
+               launches the W8A8 kernel (6 x 28 x 15 per call).
+  11. quantized reference - one W8A8 DiT forward through the kernels vs
+               through the plain versions, and vs the bf16 forward.
+  12. int8 attention path - one W8A8 DiT forward with
+               attn_backend='pallas_pv_int8': 28 int8 attention launches.
+  13. profile of one W8A8 DiT forward, and the activation pre-pass time.
+  14. timings - each bf16 attention kernel, its plain version and the
+               library call at the main path's attention shapes.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -40,9 +58,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 outside them,
-# HBM3 bandwidth.
+# NVIDIA H100 SXM data sheet, dense: bf16 and int8 tensor cores, fp32
+# outside them, HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -50,6 +69,18 @@ DIT_SHAPE = (5, 1024, 1024, 32, 128)     # 5 passes x one 512x512 frame
 VAE_ENC_SHAPE = (1, 4096, 4096, 1, 512)  # mid-block spatial attention, encode
 VAE_DEC_SHAPE = (5, 4096, 4096, 1, 512)  # and decode of the 5 pass rows
 FLAGSHIP_SHAPE = (1, 28160, 28160, 32, 128)
+# The DiT's block matmuls at the main path's 5 x 1024 tokens, (M, K, N):
+# fa wq/wk/wv/wo, mlp w1, mlp w2.
+QMM_SHAPES = ((5120, 4096, 4096), (5120, 4096, 16384), (5120, 16384, 4096))
+QMM_PER_BLOCK = {(5120, 4096, 4096): 4, (5120, 4096, 16384): 1, (5120, 16384, 4096): 1}
+# int8 attention vs attention_xla: the bounds of the JAX package's tests
+# (tests/test_flash_attention.py), int8 QK^T and int8 QK^T + PV.  They were
+# set on 65,536 outputs; on the DiT's 21M the same algorithm, run by its
+# plain version at the JAX kernel's own key tiling, reaches past them (a
+# maximum over more draws of the same quantization error), so there the
+# limit is also met by staying within 10% of what that reference reaches.
+INT8_XLA_TOL = {False: 0.012, True: 0.025}
+PREPASS_RANGE = "w8a8_activation_prepass"
 # Kernel vs plain, both in bf16: max |err| within 2e-2 of max |plain| (the
 # compared output's own scale, no floor) and a relative L2 error within 1e-2.
 # Matching rounding points leave about one bf16 ulp (2^-8 relative) on a few
@@ -168,18 +199,20 @@ def device_phase():
     say(smi.splitlines()[0])
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    return smi.splitlines()[0]
 
 
 def build_phase():
     from diffusionrenderer_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.library()
-    say(f"built {cuda_build.SOURCE.name} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {cuda_build.build_seconds:.1f} s)")
-    for line in cuda_build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
+    cuda_build.build_all()
+    say(f"built {len(cuda_build.SOURCES)} sources in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc s: {json.dumps({k: round(v, 1) for k, v in cuda_build.build_seconds.items()})})")
+    for name in cuda_build.SOURCES:
+        for line in cuda_build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas {name}: {line.strip()}")
 
 
 def kernel_case(name, shape, *, rms_normed, q_scale, expect_branch, seed):
@@ -189,7 +222,7 @@ def kernel_case(name, shape, *, rms_normed, q_scale, expect_branch, seed):
 
     q, k, v = make_qkv(shape, rms_normed=rms_normed, q_scale=q_scale, seed=seed)
     fa.reset_counts()
-    got = fa.flash_attention(q, k, v)
+    got = fa.flash_attention(q, k, v, bounded=True)
     torch.cuda.synchronize()
     branches = fa.branch_counts("cuda")
     launches = dict(fa.LAUNCHES)
@@ -202,7 +235,8 @@ def kernel_case(name, shape, *, rms_normed, q_scale, expect_branch, seed):
     check(ok, f"{name}: kernel disagrees with plain")
     check(stats_err <= 1e-4 * max(1.0, float(fa.headroom_stats_plain(q, k, v).abs().max())),
           f"{name}: headroom stats disagree with plain")
-    check(launches == {"flash_attention": 1, "flash_attention_headroom": 1},
+    check(launches == {"flash_attention": 1, "flash_attention_headroom": 1,
+                        "flash_attention_int8": 0},
           f"{name}: launch counters did not rise by one")
     check(branches[expect_branch] == 1, f"{name}: expected the {expect_branch} branch")
     return err, stats_err
@@ -237,7 +271,7 @@ def flagship_phase():
     online = time_ms(lambda: fa.flash_attention_kernel(q, k, v, None), reps=5, warmup=1)
     headroom = time_ms(lambda: fa.flash_headroom(q, k, v), reps=5, warmup=1)
     library = sdpa_ms(q, k, v, reps=5)
-    out = fa.flash_attention(q, k, v)
+    out = fa.flash_attention(q, k, v, bounded=True)
     q2, k2, v2 = (x[:, :, :2].contiguous() for x in (q, k, v))
     plain2 = time_ms(lambda: fa.flash_attention_plain(q2, k2, v2), reps=1, warmup=0)
     online_plain2 = time_ms(lambda: fa.flash_attention_plain(q2, k2, v2, bounded=False),
@@ -262,45 +296,238 @@ def flagship_phase():
     return rec
 
 
-def main_path_phase():
+def bf16_ulp(x: float) -> float:
+    """Spacing of bf16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def qmm_bound(m, k, n, groups):
+    """(bound_ms, bound_by) of one W8A8 matmul: xq, the weight, the scales
+    and the dequant read once, the bf16 output written once, against
+    2*M*N*K int8 tensor-core operations."""
+    t_bytes = (m * k + n * k + 2 * m * n + 4 * n * groups + 4 * m) / PEAK_BYTES
+    t_ops = 2 * m * n * k / PEAK_INT8_OPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def qmm_case(m, k, n, group, *, seed, timed):
+    """Kernel 4 vs its plain version on DiT-like activations and weights
+    quantized by the port; returns the case's record."""
+    import torch
+    import torch.nn.functional as F
+    from diffusionrenderer_tpu_torch.models.quant import quantize_tensor
+    from diffusionrenderer_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+    w = (torch.randn(n, k, generator=g, device="cuda") * 0.02).bfloat16()
+    leaf = quantize_tensor(w, act_quant=True, group_size=group)
+    wq, sa = leaf["q"], leaf["sa"]
+    xq, dq = qm.quantize_activation_fp32(x)
+    qm.reset_counts()
+    got = qm.quant_matmul_w8a8_kernel(xq, dq, wq, sa, torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = qm.LAUNCHES["quant_matmul_w8a8"]
+    want = qm.quant_matmul_w8a8_plain(xq, dq, wq, sa, torch.bfloat16)
+    diff = (got.float() - want.float()).abs()
+    wmax = want.float().abs().max().item()
+    rec = {"shape_mkn": [m, k, n], "group": group, "launches": launches,
+           "bitwise_equal": bool(torch.equal(got, want)), "max_abs_err": diff.max().item(),
+           "ulp_of_max": bf16_ulp(wmax),
+           "rel_l2": (diff.norm() / want.float().norm()).item()}
+    check(launches == 1, f"W8A8 {m, k, n, group}: {launches} launches, expected 1")
+    if group is None:
+        check(rec["bitwise_equal"], f"W8A8 {m, k, n}: per-channel kernel differs from plain")
+    else:
+        check(rec["max_abs_err"] <= rec["ulp_of_max"] and rec["rel_l2"] <= 1e-3,
+              f"W8A8 {m, k, n, group}: kernel outside one bf16 ulp / rel L2 1e-3 of plain")
+    if timed:
+        rec["bound_ms"], rec["bound_by"] = qmm_bound(m, k, n, 1 if group is None else k // group)
+        rec["ms"] = time_ms(lambda: qm.quant_matmul_w8a8_kernel(xq, dq, wq, sa, torch.bfloat16),
+                            20)
+        rec["plain_ms"] = time_ms(lambda: qm.quant_matmul_w8a8_plain(xq, dq, wq, sa,
+                                                                      torch.bfloat16), 2, 1)
+        rec["prepass_ms"] = time_ms(lambda: qm.quantize_activation_fp32(x), 20)
+        # Yardsticks: the int32 product alone on the same int8 operands,
+        # and the bf16 matmul the quantized one stands in for.
+        rec["library_ms"] = time_ms(lambda: torch._int_mm(xq, wq.T), 20)
+        rec["linear_bf16_ms"] = time_ms(lambda: F.linear(x, w), 20)
+        rec["tops"] = 2 * m * n * k / rec["ms"] / 1e9
+    say("  w8a8 " + json.dumps(rec))
+    return rec
+
+
+def qmm_phase():
+    recs = []
+    for i, (m, k, n) in enumerate(QMM_SHAPES):
+        for group in (None, 128):
+            recs.append(qmm_case(m, k, n, group, seed=20 + 2 * i + (group is not None),
+                                 timed=True))
+    for m, k, n, group in ((1000, 4096, 4096, None), (1000, 4096, 4096, 128),
+                           (5120, 4096, 4096, 32), (5120, 4096, 4096, 512)):
+        recs.append(qmm_case(m, k, n, group, seed=30 + m % 7 + (group or 0), timed=group == 512))
+    return recs
+
+
+def fa8_bound(shape, pv8: bool):
+    """(bound_ms, bound_by) of one int8 attention call: int8 q, k (+ fp32
+    row scales), V (bf16, or int8 + channel scales), the bf16 output;
+    2*B*Lq*Lk*H*D int8 QK^T operations, as many PV operations (int8 with
+    pv8, bf16 without), and the fp32 softmax work per score (the rank-1
+    dequant, max, shift, exp2, sum; pv8 adds the 127 fold and the round)."""
+    b, lq, lk, h, d = shape
+    nbytes = b * h * (lq * d + lk * d + 4 * (lq + lk) + (lk * d + 4 * d if pv8 else 2 * lk * d)
+                      + 2 * lq * d)
+    scores = b * lq * lk * h
+    t_bytes = nbytes / PEAK_BYTES
+    t_mma = 2 * scores * d / PEAK_INT8_OPS + 2 * scores * d / (
+        PEAK_INT8_OPS if pv8 else PEAK_BF16_FLOPS)
+    t_ops = max(t_mma, (8 if pv8 else 6) * scores / PEAK_FP32_FLOPS)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def int8_vs_exact(got, q, k, v, pv8):
+    """(max |got - attention_xla|, its limit, the same error of the plain
+    version at the JAX kernel's default key tiling)."""
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.ops.attention import attention_xla
+
+    exact = attention_xla(q, k, v).float()
+    alg = fa.flash_attention_int8_plain(q, k, v, pv_int8=pv8)
+    alg_err = (alg.float() - exact).abs().max().item()
+    xla_err = (got.float() - exact).abs().max().item()
+    return xla_err, max(INT8_XLA_TOL[pv8], 1.1 * alg_err), alg_err
+
+
+def fa8_case(name, shape, pv8, seed, rms_normed=True):
+    """Kernel 5 vs its plain version at the kernel's key tile and vs
+    attention_xla; returns (max |kernel - plain|, record)."""
+    import torch
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = make_qkv(shape, rms_normed=rms_normed, seed=seed)
+    fa.reset_counts()
+    got = fa.flash_attention(q, k, v, qk_int8=True, pv_int8=pv8)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    want = fa.flash_attention_int8_plain(q, k, v, pv_int8=pv8, block_k=fa.INT8_BLOCK_K)
+    err, rel, ok = compare(got, want)
+    xla_err, xla_limit, alg_err = int8_vs_exact(got, q, k, v, pv8)
+    rec = {"case": name, "shape": list(shape), "pv_int8": pv8, "max_abs_err": err,
+           "tol": MAX_TOL * want.float().abs().max().item(), "rel_l2": rel,
+           "xla_max_abs_err": xla_err, "xla_limit": xla_limit,
+           "jax_tiling_xla_max_abs_err": alg_err, "launches": launches}
+    say("  int8 attention " + json.dumps(rec))
+    check(ok, f"{name} pv8={pv8}: int8 kernel disagrees with plain")
+    check(xla_err <= xla_limit, f"{name} pv8={pv8}: int8 kernel too far from exact")
+    check(launches == {"flash_attention": 0, "flash_attention_headroom": 0,
+                       "flash_attention_int8": 1}, f"{name}: launch counters wrong")
+    return err, rec
+
+
+def fa8_phase():
+    """Kernel 5: the DiT and ragged shapes, then timings at the DiT and
+    flagship shapes (kernel launch alone; the pre-passes apart)."""
+    import torch
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    errs = []
+    for pv8 in (False, True):
+        errs.append(fa8_case("dit", DIT_SHAPE, pv8, seed=40 + pv8)[0])
+        errs.append(fa8_case("ragged", (2, 1000, 777, 4, 128), pv8, seed=42 + pv8)[0])
+        # The JAX package's own test shape and inputs (standard normal).
+        errs.append(fa8_case("jax_test", (2, 256, 256, 2, 64), pv8, seed=46 + pv8,
+                             rms_normed=False)[0])
+    timings = {}
+    for label, shape, reps in (("dit", DIT_SHAPE, 20), ("flagship", FLAGSHIP_SHAPE, 3)):
+        q, k, v = make_qkv(shape, rms_normed=True, seed=44)
+        stats = fa.flash_headroom(q, k, v)
+        rec = {"shape": list(shape),
+               "library_ms": sdpa_ms(q, k, v, reps),
+               "bf16_kernel_ms": time_ms(lambda: fa.flash_attention_kernel(q, k, v, stats), reps)}
+        for pv8 in (False, True):
+            ops = fa.int8_operands(q, k, v, pv_int8=pv8)
+            key = "pv8" if pv8 else "qk8"
+            rec[f"{key}_ms"] = time_ms(lambda: fa.flash_attention_int8_launch(ops), reps)
+            rec[f"{key}_prepass_ms"] = time_ms(
+                lambda: fa.int8_operands(q, k, v, pv_int8=pv8), reps)
+            rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = fa8_bound(shape, pv8)
+            if label == "dit":
+                rec[f"{key}_plain_ms"] = time_ms(lambda: fa.flash_attention_int8_plain(
+                    q, k, v, pv_int8=pv8, block_k=fa.INT8_BLOCK_K), 2, 1)
+            else:
+                out = fa.flash_attention_int8_launch(ops)[:, :, :2]
+                q2, k2, v2 = (x[:, :, :2].contiguous() for x in (q, k, v))
+                t0 = time.perf_counter()
+                want = fa.flash_attention_int8_plain(q2, k2, v2, pv_int8=pv8,
+                                                     block_k=fa.INT8_BLOCK_K)
+                torch.cuda.synchronize()
+                rec[f"{key}_plain_ms_2_heads"] = (time.perf_counter() - t0) * 1e3
+                err, rel, ok = compare(out, want)
+                xla_err, xla_limit, alg_err = int8_vs_exact(out, q2, k2, v2, pv8)
+                rec[f"{key}_2_heads"] = {"max_abs_err": err, "rel_l2": rel,
+                                         "xla_max_abs_err": xla_err, "xla_limit": xla_limit,
+                                         "jax_tiling_xla_max_abs_err": alg_err}
+                check(ok and xla_err <= xla_limit,
+                      f"flagship int8 pv8={pv8}: kernel disagrees on 2 heads")
+                del out, q2, k2, v2, want
+            del ops
+        say(f"  int8 attention timings {label} " + json.dumps(rec))
+        timings[label] = rec
+        del q, k, v, stats
+        torch.cuda.empty_cache()
+    return max(errs), timings
+
+
+def main_path_phase(label: str = "bf16", **load_kw):
+    """load_pipeline(**load_kw) + inverse_render() of the main path's image,
+    first and warm call; checks the outputs and every kernel's launches."""
     import numpy as np
     import torch
     from diffusionrenderer_tpu_torch.api import INVERSE_PASSES, inverse_render, load_pipeline
     from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.ops import quant_matmul as qm
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pipe = load_pipeline()
+    pipe = load_pipeline(**load_kw)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()
     cfg = get_inverse_renderer_config(512, 512, 1)  # what load_pipeline() builds
     net, vae = cfg.net, cfg.vae
     weights_gib = torch.cuda.memory_allocated() / 2 ** 30
-    say(f"  load_pipeline: {load_s:.2f} s, weights {weights_gib:.2f} GiB on the card "
-        f"({net.model_channels} wide, {net.num_heads} heads, {net.num_blocks} blocks; "
-        f"VAE {vae.encoder_block_out_channels})")
+    say(f"  {label} load_pipeline: {load_s:.2f} s, weights {weights_gib:.2f} GiB on the card, "
+        f"load peak {load_peak / 2 ** 30:.2f} GiB ({net.model_channels} wide, "
+        f"{net.num_heads} heads, {net.num_blocks} blocks; VAE {vae.encoder_block_out_channels})")
     image = np.random.default_rng(0).integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)
 
-    # The count the config implies: one attention call per DiT block per step
-    # (guidance 0: one forward per step), plus the VAE mid-block's spatial
-    # attention in the one batched encode and the one decode.
+    # The counts the config implies: one attention call per DiT block per
+    # step (guidance 0: one forward per step), plus the VAE mid-block's
+    # spatial attention in the one batched encode and the one decode; and,
+    # quantized, one W8A8 launch per block matmul (fa wq, wk, wv, wo; mlp
+    # w1, w2) per block per step.
     expected = pipe.num_steps * net.num_blocks + 2
+    expected_qmm = 6 * net.num_blocks * pipe.num_steps if load_kw.get("act_quant") else 0
+    torch.cuda.reset_peak_memory_stats()
     fa.reset_counts()
+    qm.reset_counts()
     t0 = time.perf_counter()
     out = inverse_render(pipe, image)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fa.LAUNCHES)
+    launches = {**fa.LAUNCHES, **qm.LAUNCHES}
     branches = fa.branch_counts("cuda")
     peak = torch.cuda.max_memory_allocated()
     timings = dict(pipe.timings)
-    rec = {"wall_s": wall, "encode_s": timings["encode"], "denoise_s": timings["denoise"],
-           "denoise_step_s": timings["denoise"] / pipe.num_steps,
+    rec = {"mode": label, "wall_s": wall, "encode_s": timings["encode"],
+           "denoise_s": timings["denoise"], "denoise_step_s": timings["denoise"] / pipe.num_steps,
            "decode_s": timings["decode"], "load_s": load_s,
-           "peak_mem_gib": peak / 2 ** 30, "weights_gib": weights_gib,
-           "launches": launches, "expected_launches": expected, "branches": branches}
-    say("main_path " + json.dumps(rec))
+           "load_peak_mem_gib": load_peak / 2 ** 30, "peak_mem_gib": peak / 2 ** 30,
+           "weights_gib": weights_gib, "launches": launches, "expected_launches": expected,
+           "expected_w8a8_launches": expected_qmm, "branches": branches}
+    say(f"main_path_{label} " + json.dumps(rec))
     check(sorted(out) == sorted(INVERSE_PASSES), f"passes {sorted(out)}")
     for name, arr in out.items():
         check(arr.shape == (1, 512, 512, 3), f"{name} shape {arr.shape}")
@@ -308,6 +535,9 @@ def main_path_phase():
               f"{name}: values not finite in [0, 1]")
     for name in ("flash_attention", "flash_attention_headroom"):
         check(launches[name] == expected, f"{name}: {launches[name]} launches, expected {expected}")
+    check(launches["flash_attention_int8"] == 0, "int8 attention ran on the main path")
+    check(launches["quant_matmul_w8a8"] == expected_qmm,
+          f"quant_matmul_w8a8: {launches['quant_matmul_w8a8']} launches, expected {expected_qmm}")
     check(branches["noshift"] + branches["online"] == expected, "branch counts do not add up")
 
     # The run above is the first on a fresh process (cuDNN / cuBLAS set-up
@@ -317,9 +547,25 @@ def main_path_phase():
     torch.cuda.synchronize()
     warm = {"wall_s": time.perf_counter() - t0, **{f"{k}_s": v for k, v in pipe.timings.items()},
             "denoise_step_s": pipe.timings["denoise"] / pipe.num_steps}
-    say("main_path_warm " + json.dumps(warm))
+    say(f"main_path_{label}_warm " + json.dumps(warm))
     rec["warm"] = warm
     return pipe, rec
+
+
+def dit_inputs(seed: int):
+    """Seeded bf16 DiT inputs at the main path's shape (5 pass rows, one
+    512x512 frame's 64x64 latent)."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn(5, 1, 64, 64, 16, generator=g, device="cuda").bfloat16()
+    cond = torch.randn(5, 1, 64, 64, 16, generator=g, device="cuda").bfloat16()
+    return x, torch.full((5,), 2.5, device="cuda"), cond, torch.arange(5, device="cuda")
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
 
 
 def reference_phase(pipe):
@@ -354,38 +600,56 @@ def reference_phase(pipe):
     return res
 
 
-def profile_phase(pipe):
+def profile_phase(params, label: str = "bf16"):
     """torch.profiler over one DiT forward at the main path's shape: device
     time by kernel class, and the device's idle share of the wall time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
     from diffusionrenderer_tpu_torch.models.dit import dit_forward
+    from diffusionrenderer_tpu_torch.ops import quant_matmul as qm
 
     net = get_inverse_renderer_config(512, 512, 1).net
-    g = torch.Generator("cuda").manual_seed(5)
-    x = torch.randn(5, 1, 64, 64, 16, generator=g, device="cuda").bfloat16()
-    cond = torch.randn(5, 1, 64, 64, 16, generator=g, device="cuda").bfloat16()
-    sigma, ctx = torch.full((5,), 2.5, device="cuda"), torch.arange(5, device="cuda")
+    x, sigma, cond, ctx = dit_inputs(5)
 
     def step():
         with torch.no_grad():
-            dit_forward(pipe.dit_params, x, sigma, cond, ctx, net)
+            dit_forward(params, x, sigma, cond, ctx, net)
+
+    # The W8A8 activation pre-passes are generic elementwise kernels; a
+    # profiler range around each call attributes their device time.
+    prepass = qm.quantize_activation_fp32
+
+    def annotated_prepass(x2):
+        with record_function(PREPASS_RANGE):
+            return prepass(x2)
 
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    qm.quantize_activation_fp32 = annotated_prepass
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        qm.quantize_activation_fp32 = prepass
     # Device-side events only (kernels, copies, memsets); the CPU-side
     # aten:: events would count their kernels' time a second time.
-    classes = {"gemm": 0.0, "flash_attention": 0.0, "headroom": 0.0, "elementwise/other": 0.0}
+    classes = {"gemm": 0.0, "int8_matmul": 0.0, "flash_attention": 0.0, "headroom": 0.0,
+               "elementwise/other": 0.0}
     top = []
+    prepass_ms = 0.0
     for ev in prof.key_averages():
+        if ev.key == PREPASS_RANGE:
+            # The host-side range sums its kernels' device time; its GPU-side
+            # twin spans the same kernels and is not counted again.
+            if ev.device_type == DeviceType.CPU:
+                prepass_ms = ev.device_time_total / 1e3
+            continue
         if ev.device_type != DeviceType.CUDA or ev.key.startswith("Command Buffer"):
             continue
         dev_us = (ev.self_device_time_total if hasattr(ev, "self_device_time_total")
@@ -396,6 +660,8 @@ def profile_phase(pipe):
             cls = "flash_attention"
         elif "headroom_kernel" in name:
             cls = "headroom"
+        elif "w8a8_kernel" in name:
+            cls = "int8_matmul"
         elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
             cls = "gemm"
         else:
@@ -412,16 +678,109 @@ def profile_phase(pipe):
     out_dim = net.patch_spatial ** 2 * net.patch_temporal * net.out_channels
     per_token = net.num_blocks * (4 * d * d + 2 * d * net.hidden_dim) + (net.patch_dim + out_dim) * d
     dense_tflop = 2 * tokens * per_token / 1e12
-    rec = {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1 - busy / wall_ms,
-           "by_class_ms": classes, "dense_matmul_tflop": dense_tflop,
-           "gemm_tflops": dense_tflop / (classes["gemm"] / 1e3) if classes["gemm"] else None,
+    mm_ms = classes["gemm"] + classes["int8_matmul"]
+    rec = {"mode": label, "wall_ms": wall_ms, "device_ms": busy, "idle_share": 1 - busy / wall_ms,
+           "by_class_ms": classes, "w8a8_prepass_ms_within_elementwise": prepass_ms,
+           "dense_matmul_tflop": dense_tflop,
+           "matmul_tflops": dense_tflop / (mm_ms / 1e3) if mm_ms else None,
            "top": [[round(t, 3), c, n] for t, c, n in top[:12]]}
-    say("profile_dit_forward " + json.dumps(rec))
+    say(f"profile_dit_forward_{label} " + json.dumps(rec))
     return rec
 
 
-def kernel_records(main_rec, max_err, max_stats_err):
-    """Per-kernel numbers at the main path's attention shapes."""
+def quant_reference_phase(bf16_params):
+    """One full-width W8A8 DiT forward through the kernels, held against
+    (a) the same forward with the W8A8 kernel's plain version swapped in for
+    the kernel (the attention kernels kept): this isolates kernel 4 in situ;
+    (b) the plain path, both the W8A8 and the attention kernels swapped for
+    their plain versions; and printed beside the bf16 forward on the same
+    weights.  Returns (W8A8 params, record)."""
+    import torch
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+    from diffusionrenderer_tpu_torch.models import quant
+    from diffusionrenderer_tpu_torch.models.dit import dit_forward
+    from diffusionrenderer_tpu_torch.ops import quant_matmul as qm
+
+    net = get_inverse_renderer_config(512, 512, 1).net
+    params = quant.quantize_dit_params(bf16_params, act_quant=True)
+    x, sigma, cond, ctx = dit_inputs(3)
+
+    def plain_w8a8(xx, wq, scale):
+        *lead, k = xx.shape
+        xq, dq = qm.quantize_activation_fp32(xx.reshape(-1, k))
+        return qm.quant_matmul_w8a8_plain(xq, dq, wq, scale, xx.dtype).reshape(*lead, -1)
+
+    def forward_plain_w8a8(attn_backend):
+        kernel_call, quant.quant_matmul_w8a8 = quant.quant_matmul_w8a8, plain_w8a8
+        try:
+            return dit_forward(params, x, sigma, cond, ctx, net, attn_backend=attn_backend)
+        finally:
+            quant.quant_matmul_w8a8 = kernel_call
+
+    with torch.no_grad():
+        qm.reset_counts()
+        got = dit_forward(params, x, sigma, cond, ctx, net)
+        torch.cuda.synchronize()
+        launches = qm.LAUNCHES["quant_matmul_w8a8"]
+        swapped = forward_plain_w8a8("auto")
+        plain = forward_plain_w8a8("xla")
+        bf16 = dit_forward(bf16_params, x, sigma, cond, ctx, net)
+    rec = {"w8a8_kernel_vs_its_plain_rel_l2": rel_l2(got, swapped),
+           "kernel_path_vs_plain_path_rel_l2": rel_l2(got, plain),
+           "w8a8_vs_bf16_rel_l2": rel_l2(got, bf16), "w8a8_launches": launches}
+    say("quant_reference " + json.dumps(rec))
+    check(launches == 6 * net.num_blocks, f"W8A8 forward: {launches} kernel launches")
+    check(rec["w8a8_kernel_vs_its_plain_rel_l2"] <= 2e-2,
+          "W8A8 forward: the W8A8 kernel moves the forward away from its plain version")
+    # With the attention kernels on the plain path too, their bf16 ulps
+    # (1.2e-2 after 28 bf16 blocks, phase 8) move int8 activation codes
+    # across .5 boundaries at every block matmul: a few 1e-2, the size of
+    # the W8A8 quantization noise itself (w8a8_vs_bf16).  A wrong kernel
+    # moves the output by O(1).
+    check(rec["kernel_path_vs_plain_path_rel_l2"] <= 0.1, "W8A8 forward: kernel path vs plain")
+    return params, rec
+
+
+def int8_attention_path_phase(params):
+    """The int8 attention path: one W8A8 DiT forward with
+    attn_backend='pallas_pv_int8' (one int8 attention launch per block)
+    against attn_backend='pallas'."""
+    import torch
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+    from diffusionrenderer_tpu_torch.models.dit import dit_forward
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    net = get_inverse_renderer_config(512, 512, 1).net
+    x, sigma, cond, ctx = dit_inputs(4)
+    with torch.no_grad():
+        fa.reset_counts()
+        got = dit_forward(params, x, sigma, cond, ctx, net, attn_backend="pallas_pv_int8")
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        want = dit_forward(params, x, sigma, cond, ctx, net, attn_backend="pallas")
+    rec = {"launches": launches, "pv_int8_vs_bf16_attention_rel_l2": rel_l2(got, want),
+           "finite": bool(torch.isfinite(got).all())}
+    say("int8_attention_path " + json.dumps(rec))
+    check(launches["flash_attention_int8"] == net.num_blocks and launches["flash_attention"] == 0,
+          f"pallas_pv_int8 forward: launches {launches}")
+    check(rec["finite"], "pallas_pv_int8 forward: non-finite output")
+    return rec
+
+
+def prepass_per_forward(qmm_recs):
+    """Device ms of the W8A8 activation pre-passes per DiT forward: one per
+    block matmul (the same xm is quantized three times for wq/wk/wv)."""
+    ms = {tuple(r["shape_mkn"]): r["prepass_ms"] for r in qmm_recs
+          if r["group"] is None and "prepass_ms" in r}
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+
+    per_block = sum(ms[shape] * n for shape, n in QMM_PER_BLOCK.items())
+    return get_inverse_renderer_config(512, 512, 1).net.num_blocks * per_block
+
+
+def kernel_records(main_rec, max_err, max_stats_err, quant):
+    """Per-kernel numbers at the main path's shapes.  `quant` carries the
+    int8 kernels' numbers from phases 5, 6, 10 and 12."""
     import torch
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
 
@@ -463,7 +822,44 @@ def kernel_records(main_rec, max_err, max_stats_err):
                      "_bounded_cond_call evaluates before its lax.cond; bound at :559)",
          "launches": main["flash_attention_headroom"], "max_abs_err": max_stats_err,
          **head_shapes[0], "main_path_shapes": head_shapes},
+        w8a8_record(quant),
+        int8_attention_record(quant),
     ]
+
+
+def w8a8_record(quant):
+    """Kernel 4 at the DiT's (5120, 4096, 4096) per-channel matmul, its
+    other main-path shapes and modes beside it."""
+    timed = [r for r in quant["qmm"] if "ms" in r]
+    head = timed[0]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "linear_bf16_ms",
+            "prepass_ms")
+    return {"name": "quant_matmul_w8a8", "route": "cuda",
+            "source": "diffusionrenderer_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": "diffusionrenderer_tpu/ops/quant_matmul.py:70 (_kernel, "
+                        "pallas_call at :230)",
+            "launches": quant["w8a8"]["launches"]["quant_matmul_w8a8"],
+            "launches_w8a8_g128": quant["w8a8_g128"]["launches"]["quant_matmul_w8a8"],
+            "max_abs_err": max(r["max_abs_err"] for r in quant["qmm"]),
+            **{k: head[k] for k in keys}, "library": "torch._int_mm (int32 product only)",
+            "main_path_shapes": [{k: r[k] for k in ("shape_mkn", "group", "tops", *keys)}
+                                 for r in timed],
+            "prepass_ms_per_dit_forward": quant["prepass_ms_per_forward"]}
+
+
+def int8_attention_record(quant):
+    """Kernel 5 at the DiT shape, int8 QK^T + PV (attn_backend
+    'pallas_pv_int8'); qk8 and the flagship shape beside it."""
+    dit = quant["fa8_timings"]["dit"]
+    return {"name": "flash_attention_int8", "route": "cuda",
+            "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_int8.cu",
+            "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:317 (_flash_kernel_int8)",
+            "launches": quant["int8_path"]["launches"]["flash_attention_int8"],
+            "max_abs_err": quant["fa8_max_err"], "ms": dit["pv8_ms"],
+            "plain_ms": dit["pv8_plain_ms"], "bound_ms": dit["pv8_bound_ms"],
+            "bound_by": dit["pv8_bound_by"], "library_ms": dit["library_ms"],
+            "library": "F.scaled_dot_product_attention bf16", "shape": list(DIT_SHAPE),
+            "prepass_ms": dit["pv8_prepass_ms"], "timings": quant["fa8_timings"]}
 
 
 def main() -> int:
@@ -480,7 +876,7 @@ def main() -> int:
         return 2
     t_all = time.perf_counter()
     t = phase("1 device")
-    device_phase()
+    card = device_phase()
     t = phase("2 build")
     build_phase()
     t = phase("3 kernels vs plain")
@@ -489,20 +885,55 @@ def main() -> int:
     t = phase("4 flagship attention")
     flagship_phase()
     say(f"  phase 4: {time.perf_counter() - t:.1f} s")
-    t = phase("5 main path: load_pipeline + inverse_render")
-    pipe, main_rec = main_path_phase()
+    quant = {}
+    t = phase("5 W8A8 matmul kernel vs plain")
+    quant["qmm"] = qmm_phase()
     say(f"  phase 5: {time.perf_counter() - t:.1f} s")
-    t = phase("6 reference: kernel path vs plain attention path")
-    reference_phase(pipe)
+    t = phase("6 int8 attention kernel vs plain")
+    quant["fa8_max_err"], quant["fa8_timings"] = fa8_phase()
     say(f"  phase 6: {time.perf_counter() - t:.1f} s")
-    t = phase("7 profile of one DiT forward at the main path's shape")
-    profile_phase(pipe)
+    t = phase("7 main path: load_pipeline + inverse_render")
+    pipe, main_rec = main_path_phase()
+    say(f"  phase 7: {time.perf_counter() - t:.1f} s")
+    t = phase("8 reference: kernel path vs plain attention path")
+    reference_phase(pipe)
+    say(f"  phase 8: {time.perf_counter() - t:.1f} s")
+    t = phase("9 profile of one DiT forward at the main path's shape")
+    profile_phase(pipe.dit_params)
     del pipe
     torch.cuda.empty_cache()
-    say(f"  phase 7: {time.perf_counter() - t:.1f} s")
-    t = phase("8 kernel timings at the main path's shapes")
-    records = kernel_records(main_rec, max_err, max_stats_err)
-    say(f"  phase 8: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
+    say(f"  phase 9: {time.perf_counter() - t:.1f} s")
+    t = phase("10 quantized main path: w8a8 and w8a8_g128")
+    for label, kw in (("w8a8", {}), ("w8a8_g128", {"quant_group_size": 128})):
+        pipe, quant[label] = main_path_phase(label, quantize_int8=True, act_quant=True, **kw)
+        del pipe
+        torch.cuda.empty_cache()
+    say(f"  phase 10: {time.perf_counter() - t:.1f} s")
+    t = phase("11 quantized reference: W8A8 kernel path vs plain path")
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+    from diffusionrenderer_tpu_torch.models.dit import init_dit_params
+
+    bf16_params = init_dit_params(get_inverse_renderer_config(512, 512, 1).net,
+                                  device="cuda", dtype=torch.bfloat16, seed=0)
+    w8a8_params, quant["reference"] = quant_reference_phase(bf16_params)
+    del bf16_params
+    torch.cuda.empty_cache()
+    say(f"  phase 11: {time.perf_counter() - t:.1f} s")
+    t = phase("12 int8 attention path: dit_forward(attn_backend='pallas_pv_int8')")
+    quant["int8_path"] = int8_attention_path_phase(w8a8_params)
+    say(f"  phase 12: {time.perf_counter() - t:.1f} s")
+    t = phase("13 profile of one W8A8 DiT forward")
+    quant["profile"] = profile_phase(w8a8_params, "w8a8")
+    quant["prepass_ms_per_forward"] = prepass_per_forward(quant["qmm"])
+    say(f"  W8A8 activation pre-passes per DiT forward: {quant['prepass_ms_per_forward']:.2f} "
+        "ms of device time (from phase 5's per-call times)")
+    del w8a8_params
+    torch.cuda.empty_cache()
+    say(f"  phase 13: {time.perf_counter() - t:.1f} s")
+    t = phase("14 kernel timings at the main path's shapes")
+    records = kernel_records(main_rec, max_err, max_stats_err, quant)
+    say(f"  phase 14: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
+    say(card)  # again here: the end of a long log is what survives
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

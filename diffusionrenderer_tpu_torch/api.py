@@ -10,6 +10,7 @@ runs on CUDA unless `load_pipeline(device="cpu")` asks for the CPU.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -20,6 +21,7 @@ import torch
 
 from .config import GBUFFER_INDEX_MAPPING, DiTConfig, VAEConfig
 from .models.dit import init_dit_params
+from .models.quant import quantize_block
 from .models.vae import init_vae_params
 from .pipeline import DiffusionRendererPipeline
 from .utils.device import DeviceLike, resolve_device
@@ -41,10 +43,23 @@ def load_pipeline(
     net_config: Optional[DiTConfig] = None,
     vae_config: Optional[VAEConfig] = None,
     device: DeviceLike = None,
+    quantize_int8: bool = False,
+    act_quant: bool = False,
+    quant_group_size: Optional[int] = None,
+    quant_keep_bf16: Sequence[str] = (),
+    quant_mse_clip: bool = False,
+    quant_hadamard: bool = False,
 ) -> DiffusionRendererPipeline:
     """Build a pipeline with random weights at the model_type's architecture
     (the full FADITV2_7B DiT and CV8x8x8 VAE unless configs are given),
-    drawn from fixed seeds directly on `device` (CUDA by default)."""
+    drawn from fixed seeds directly on `device` (CUDA by default).
+
+    quantize_int8 quantizes the DiT's block matmuls to int8 on the device as
+    they are drawn (models/quant.quantize_block: the same weights as the
+    unquantized pipeline of the same seed): act_quant for W8A8 (the int8
+    matmul kernel), quant_group_size for per-group scales, quant_keep_bf16
+    for matmuls left unquantized ('wo', 'mlp.w2', ...), quant_mse_clip and
+    quant_hadamard for the calibration-free quantizers."""
     if dit_checkpoint is not None or vae_checkpoint is not None:
         raise NotImplementedError(
             "checkpoint loading is not ported yet (ROADMAP.md queue 1, "
@@ -58,8 +73,14 @@ def load_pipeline(
     else:
         net_cfg = DiTConfig(additional_concat_ch=17 * 8, use_context_embedding=False)
     vae_cfg = vae_config if vae_config is not None else VAEConfig()
+    block_fn = None
+    if quantize_int8:
+        block_fn = functools.partial(
+            quantize_block, act_quant=act_quant, group_size=quant_group_size,
+            keep_bf16=tuple(quant_keep_bf16), mse_clip=quant_mse_clip,
+            hadamard=quant_hadamard)
     return DiffusionRendererPipeline(
-        init_dit_params(net_cfg, device=dev, dtype=dtype, seed=0),
+        init_dit_params(net_cfg, device=dev, dtype=dtype, seed=0, block_fn=block_fn),
         init_vae_params(vae_cfg, device=dev, dtype=dtype, seed=1),
         model_type=model_type,
         guidance=guidance,

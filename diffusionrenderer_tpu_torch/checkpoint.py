@@ -7,7 +7,11 @@ parameter dicts, doing every layout change here:
 
 * DiT: blocks stacked on a leading axis (nb, ...) become a list of
   per-block dicts; dense weights (in, out) become (out, in); the context
-  embedding table keeps its (num, C_ctx) layout;
+  embedding table keeps its (num, C_ctx) layout.  Quantized leaves (the
+  trees of the JAX package's quantize_dit_params): codes 'q' (K, N) int8
+  become (N, K) int8, the (out, in) layout that is also the K-contiguous B
+  operand of the int8 matmul kernel; scales 's' / 'sa' ((N,) or (G, N))
+  and the 'hs' / 'di' input transforms (K,) keep their layout and fp32;
 * VAE: conv weights (kt, kh, kw, Cin, Cout) become (Cout, Cin, kt, kh, kw);
   dense weights (in, out) become (out, in).
 
@@ -25,6 +29,7 @@ import torch
 
 from .config import DiTConfig, VAEConfig
 from .models.dit import init_dit_params
+from .models.quant import QUANTIZED_BLOCK_WEIGHTS, quantize_tensor
 from .models.vae import init_vae_params
 from .utils.device import DeviceLike, resolve_device
 
@@ -59,7 +64,16 @@ def _fill(expected: Any, leaves: Dict[str, np.ndarray],
         raise ValueError(f"leaf {prefix!r} has shape {tuple(arr.shape)} after "
                          f"conversion, expected {tuple(expected.shape)}")
     t = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
-    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+    keep = dtype is None or not t.is_floating_point() or _is_quant_scale(prefix)
+    return t.to(device=device, dtype=t.dtype if keep else dtype)
+
+
+_QUANT_SCALES = ("s", "sa", "hs", "di")
+
+
+def _is_quant_scale(key: str) -> bool:
+    """Scales and transforms of a quantized leaf: they keep fp32."""
+    return key.rsplit("/", 1)[-1] in _QUANT_SCALES
 
 
 def _check_consumed(leaves: Dict[str, Any]) -> None:
@@ -87,14 +101,38 @@ def dit_params_from_numpy(tree: Dict[str, Any], cfg: DiTConfig, *,
             leaves[key] = arr
 
     def convert(key: str, arr: np.ndarray) -> np.ndarray:
-        if arr.ndim == 2 and key != "context_embedding/weight":
-            return arr.T  # (in, out) -> (out, in)
+        if arr.ndim == 2 and key != "context_embedding/weight" and not _is_quant_scale(key):
+            return arr.T  # (in, out) -> (out, in), int8 codes included
         return arr
 
-    expected = init_dit_params(cfg, device="meta", dtype=torch.float32)
+    expected = _expected_dit_tree(cfg, leaves)
     params = _fill(expected, leaves, convert, device, dtype)
     _check_consumed(leaves)
     return params
+
+
+def _expected_dit_tree(cfg: DiTConfig, leaves: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's own 'meta' init, with every block matmul that arrives
+    quantized replaced by the port's quantize_tensor of it, under the
+    options its leaves show: 'sa' (W8A8) or 's', grouped scales (G, N),
+    'hs' (Hadamard), 'di' (migration)."""
+    expected = init_dit_params(cfg, device="meta", dtype=torch.float32)
+    for i, bp in enumerate(expected["blocks"]):
+        for sub, names in QUANTIZED_BLOCK_WEIGHTS.items():
+            for name in names:
+                key = f"blocks/{i}/{sub}/{name}"
+                if f"{key}/q" not in leaves:
+                    continue
+                w = bp[sub][name]
+                scale = leaves.get(f"{key}/sa", leaves.get(f"{key}/s"))
+                grouped = scale is not None and np.ndim(scale) == 2
+                bp[sub][name] = quantize_tensor(
+                    w, act_quant=f"{key}/sa" in leaves,
+                    group_size=w.shape[1] // np.shape(scale)[0] if grouped else None,
+                    hadamard=f"{key}/hs" in leaves,
+                    migrate=(torch.ones(w.shape[1], device="meta")
+                             if f"{key}/di" in leaves else None))
+    return expected
 
 
 def vae_params_from_numpy(tree: Dict[str, Any], cfg: VAEConfig, *,

@@ -14,23 +14,33 @@ are a list walked by a Python loop (the JAX package stacks them for
   the forward renderer;
 * fp32 AdaLN, RMSNorm and LayerNorm statistics; matmuls in the weights'
   dtype with fp32 accumulation.
+
+Every block matmul goes through models/quant.dense_maybe_quantized, so a
+block's dict may hold int8 leaves (weight-only or W8A8, per channel or per
+group); a '_mixN' list mixes bf16 and quantized blocks.  `capture` is the
+calibration hook (models/calibrate.py): it sees the input of every
+quantization site (models/quant.LEAF_SITE) as the block runs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..config import DiTConfig
-from ..ops.attention import attention, cross_attention_single_kv
+from ..ops.attention import attention
 from ..ops.norms import adaln_modulation, layer_norm_no_affine, modulate, rms_norm
 from ..ops.patch import patch_embed, unpatchify
 from ..ops.rope import apply_rope, rope_3d_angles
 from ..ops.timestep import timestep_embedding
+from .quant import dense_maybe_quantized as _dense
 
 Params = Dict[str, Any]
+# capture(site, tensor): sees each quantization site's input (LEAF_SITE names).
+Capture = Optional[Callable[[str, torch.Tensor], None]]
 
 
 # ---------------------------------------------------------------------------
@@ -38,10 +48,14 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 def init_dit_params(cfg: DiTConfig, *, device, dtype: torch.dtype = torch.bfloat16,
-                    seed: int = 0, scale: float = 0.02) -> Params:
+                    seed: int = 0, scale: float = 0.02,
+                    block_fn: Optional[Callable[[Params], Params]] = None) -> Params:
     """Random-normal weights with the checkpoint's shapes, drawn on `device`
     from a seeded torch.Generator (so a full-size model is built where it
-    runs, with no host copy).  device='meta' gives the shapes only."""
+    runs, with no host copy).  device='meta' gives the shapes only.
+    block_fn, if given, replaces each block's dict as soon as it is drawn
+    (load_pipeline quantizes there, so the whole model never sits on the
+    device in both precisions); the draws do not depend on it."""
     dev = torch.device(device)
     gen = None if dev.type == "meta" else torch.Generator(dev).manual_seed(seed)
     d, dh, r = cfg.model_channels, cfg.head_dim, cfg.adaln_lora_dim
@@ -59,13 +73,14 @@ def init_dit_params(cfg: DiTConfig, *, device, dtype: torch.dtype = torch.bfloat
 
     blocks = []
     for _ in range(cfg.num_blocks):
-        blocks.append({
+        bp = {
             "fa": {**adaln(), "wq": w(d, d), "wk": w(d, d), "wv": w(d, d),
                    "wo": w(d, d), "q_norm": ones(dh), "k_norm": ones(dh)},
             "ca": {**adaln(), "wq": w(d, d), "wk": w(d, ctx), "wv": w(d, ctx),
                    "wo": w(d, d), "q_norm": ones(dh), "k_norm": ones(dh)},
             "mlp": {**adaln(), "w1": w(hid, d), "w2": w(d, hid)},
-        })
+        }
+        blocks.append(bp if block_fn is None else block_fn(bp))
     out_dim = cfg.patch_spatial ** 2 * cfg.patch_temporal * cfg.out_channels
     params: Params = {
         "x_embedder": {"weight": w(d, cfg.patch_dim)},
@@ -115,44 +130,55 @@ def _adaln(x, emb, lora, bp):
 
 
 def _self_attention_block(x, emb, lora, bp, cos, sin, num_heads: int,
-                          attn_backend: str) -> torch.Tensor:
+                          attn_backend: str, capture: Capture = None) -> torch.Tensor:
     (_, _, gate), xm = _adaln(x, emb, lora, bp)
     b, l, d = xm.shape
     dh = d // num_heads
-    q = F.linear(xm, bp["wq"]).reshape(b, l, num_heads, dh)
-    k = F.linear(xm, bp["wk"]).reshape(b, l, num_heads, dh)
-    v = F.linear(xm, bp["wv"]).reshape(b, l, num_heads, dh)
+    if capture is not None:
+        capture("fa.qkv", xm)
+    q = _dense(xm, bp["wq"]).reshape(b, l, num_heads, dh)
+    k = _dense(xm, bp["wk"]).reshape(b, l, num_heads, dh)
+    v = _dense(xm, bp["wv"]).reshape(b, l, num_heads, dh)
     # Per-head q/k RMSNorm, identity on v (the "RRI" scheme).
     q = apply_rope(rms_norm(q, bp["q_norm"]), cos, sin)
     k = apply_rope(rms_norm(k, bp["k_norm"]), cos, sin)
-    o = attention(q, k, v, backend=attn_backend)
-    o = F.linear(o.reshape(b, l, d), bp["wo"])
-    return x + gate[:, None, :] * o
+    o = attention(q, k, v, backend=attn_backend).reshape(b, l, d)
+    if capture is not None:
+        capture("fa.wo", o)
+    return x + gate[:, None, :] * _dense(o, bp["wo"])
 
 
-def _cross_attention_block(x, emb, lora, bp, context, num_heads: int) -> torch.Tensor:
+def _cross_attention_block(x, emb, lora, bp, context, capture: Capture = None) -> torch.Tensor:
     """Cross-attention over the one-token context: softmax over a single key
     is 1, so the output is W_o W_v context for every query (q, k and their
-    norms drop out exactly, and so does the modulated x)."""
+    norms drop out exactly, and so does the modulated x; see
+    ops/attention.cross_attention_single_kv)."""
     gate = _adaln_chunks(emb, lora, bp, x.dtype)[2]
-    v = cross_attention_single_kv(context, bp["wk"], bp["wv"], num_heads)
-    o = F.linear(v.reshape(x.shape[0], 1, -1), bp["wo"])  # (B, 1, D)
-    return x + gate[:, None, :] * o
+    if capture is not None:
+        capture("ca.wv", context)
+    v = _dense(context, bp["wv"])  # (B, 1, D)
+    if capture is not None:
+        capture("ca.wo", v)
+    return x + gate[:, None, :] * _dense(v, bp["wo"])
 
 
-def _mlp_block(x, emb, lora, bp) -> torch.Tensor:
+def _mlp_block(x, emb, lora, bp, capture: Capture = None) -> torch.Tensor:
     (_, _, gate), xm = _adaln(x, emb, lora, bp)
-    h = F.gelu(F.linear(xm, bp["w1"]), approximate="none")  # erf form
-    return x + gate[:, None, :] * F.linear(h, bp["w2"])
+    if capture is not None:
+        capture("mlp.w1", xm)
+    h = F.gelu(_dense(xm, bp["w1"]), approximate="none")  # erf form
+    if capture is not None:
+        capture("mlp.w2", h)
+    return x + gate[:, None, :] * _dense(h, bp["w2"])
 
 
 def block_apply(bp: Params, x, emb, lora, context, cos, sin, cfg: DiTConfig,
-                attn_backend: str = "auto") -> torch.Tensor:
+                attn_backend: str = "auto", capture: Capture = None) -> torch.Tensor:
     """One FA -> CA -> MLP block."""
     x = _self_attention_block(x, emb, lora, bp["fa"], cos, sin, cfg.num_heads,
-                              attn_backend)
-    x = _cross_attention_block(x, emb, lora, bp["ca"], context, cfg.num_heads)
-    return _mlp_block(x, emb, lora, bp["mlp"])
+                              attn_backend, capture)
+    x = _cross_attention_block(x, emb, lora, bp["ca"], context, capture)
+    return _mlp_block(x, emb, lora, bp["mlp"], capture)
 
 
 # ---------------------------------------------------------------------------
@@ -168,13 +194,15 @@ def dit_forward(
     cfg: DiTConfig,
     *,
     attn_backend: str = "auto",
+    capture: Optional[Callable[[int, str, torch.Tensor], None]] = None,
 ) -> torch.Tensor:
     """One denoiser evaluation F(x; sigma, condition).
 
     x: (B, T, H, W, C_in) channels-last, already c_in-scaled; sigma: (B,)
     raw noise levels; latent_condition: (B, T, H, W, C_cond);
     context_index: (B,) G-buffer selector (used when the config has a
-    context embedding).  Returns (B, T, H, W, C_out) in x's dtype."""
+    context embedding); capture(block, site, tensor): the calibration hook.
+    Returns (B, T, H, W, C_out) in x's dtype."""
     b, t, h, w, _ = x.shape
     d = cfg.model_channels
     dtype = x.dtype
@@ -210,9 +238,10 @@ def dit_forward(
     )
     cos, sin = torch.cos(angles), torch.sin(angles)
 
-    for bp in params["blocks"]:
+    for i, bp in enumerate(params["blocks"]):
+        hook = None if capture is None else functools.partial(capture, i)
         tokens = block_apply(bp, tokens, affline_emb, lora, context, cos, sin, cfg,
-                             attn_backend)
+                             attn_backend, hook)
 
     # Final layer: 2-chunk AdaLN on the first 2D slice of the shared lora.
     fin = params["final"]

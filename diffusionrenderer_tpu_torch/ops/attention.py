@@ -2,8 +2,9 @@
 kernel (counterpart of diffusionrenderer_tpu/ops/attention.py).
 
 Layout is (B, L, H, Dh) throughout; non-causal, no mask.  The backend
-strings keep the JAX package's names: here 'pallas' and 'pallas_onlinemax'
-name the hand-written CUDA flash kernel family (ops/flash_attention.py).
+strings keep the JAX package's names: here 'pallas', 'pallas_onlinemax'
+and 'pallas_pv_int8' name the hand-written CUDA flash kernels
+(ops/flash_attention.py).
 """
 
 from __future__ import annotations
@@ -38,17 +39,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sequences (_use_pallas) and the plain path otherwise; 'pallas' forces
     the bounded flash kernel (no-shift branch when the headroom rule holds,
     online softmax otherwise); 'pallas_onlinemax' forces the online-softmax
-    branch; 'xla' is the plain path.  On CPU tensors the flash backends run
-    the kernel's plain version."""
+    branch; 'pallas_pv_int8' is the int8 QK^T + int8 PV online-softmax
+    kernel; 'xla' is the plain path.  On CPU tensors the flash backends run
+    the kernels' plain versions."""
     if backend == "xla":
         return attention_xla(q, k, v)
-    if backend == "pallas_pv_int8":
-        raise NotImplementedError(
-            "backend='pallas_pv_int8' (the int8 QK^T/PV flash kernel) is not "
-            "ported yet: ROADMAP.md queue 2, item 5")
     if backend not in BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; "
                          f"expected one of {BACKENDS}")
+    if backend == "pallas_pv_int8":
+        return flash_attention(q, k, v, bounded=False, pv_int8=True)
     if backend in ("pallas", "pallas_onlinemax") or _use_pallas(q, k):
         return flash_attention(q, k, v, bounded=backend != "pallas_onlinemax")
     return attention_xla(q, k, v)

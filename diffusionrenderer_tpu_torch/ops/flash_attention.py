@@ -1,16 +1,22 @@
-"""Bounded flash attention: the CUDA kernels' wrappers and their plain version.
+"""Flash attention: the CUDA kernels' wrappers and their plain versions.
 
 Counterpart of diffusionrenderer_tpu/ops/flash_attention.py
-(`flash_attention(bounded=True)` and `bounded=False`).  The kernels are in
-`csrc/flash_attention.cu`; this module holds
+(`flash_attention(bounded=..., qk_int8=..., pv_int8=...)`).  The kernels are
+in `csrc/flash_attention.cu` (bf16) and `csrc/flash_attention_int8.cu`;
+this module holds
 
-* `flash_attention` - the entry point: the plain version for CPU tensors,
-  the kernels for CUDA tensors (it launches or raises, it never falls back);
-* `flash_headroom` / `flash_attention_kernel` - the two launch wrappers,
-  each adding one to its count in `LAUNCHES` per launch;
+* `flash_attention` - the entry point, with the JAX package's signature and
+  defaults: the plain versions for CPU tensors, the kernels for CUDA tensors
+  (it launches or raises, it never falls back);
+* `flash_headroom` / `flash_attention_kernel` / `flash_attention_int8_launch`
+  - the launch wrappers, each adding one to its count in `LAUNCHES` per
+  launch (`int8_operands` runs the int8 kernel's pre-passes);
 * `flash_attention_plain` / `headroom_stats_plain` - the plain PyTorch
-  version of the same function, with the same no-shift / online split and
-  the same headroom rule, so the CPU tests exercise the branch logic.
+  version of the bf16 kernels, with the same no-shift / online split and
+  the same headroom rule, so the CPU tests exercise the branch logic;
+* `flash_attention_int8_plain` - the plain version of the int8 kernel
+  (SageAttention-style int8 QK^T, optionally int8 PV), walking the keys in
+  the same tiles, since P is rounded relative to the running max.
 
 The branch rule is that of the JAX package (_bounded_cond_call): with q
 pre-scaled by softmax_scale*log2(e) and the row bound m_i = ||q_i|| * max_j
@@ -29,17 +35,22 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 _LOG2E = math.log2(math.e)
 HEADROOM_LIMIT = 120.0
+_LOG2_127 = math.log2(127.0)
+_NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256, 512)
+INT8_HEAD_DIMS = (64, 128)
+INT8_BLOCK_K = 64  # keys per tile of the int8 kernel (csrc/flash_attention_int8.cu BK)
 _JAX_DEFAULT_BLOCK_K = 2816  # diffusionrenderer_tpu/ops/flash_attention.py DEFAULT_BLOCK_K
 
 # Launches of each kernel since the last reset_counts(), counted by its wrapper.
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_headroom": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_headroom": 0,
+                            "flash_attention_int8": 0}
 # Per device, int32[2]: how many attention launches took the no-shift and the
 # online branch, counted on the device by block (0, 0, 0) of each launch.
 _tallies: Dict[torch.device, torch.Tensor] = {}
@@ -72,15 +83,23 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def reference_block_k(lk: int, d: int, block_k: Optional[int] = None) -> int:
+    """The key tile of the JAX kernels (_flash_call): the default 2816,
+    clamped and rebalanced, or an explicit block_k, clamped only."""
+    explicit = block_k is not None
+    bk = min(block_k if explicit else _JAX_DEFAULT_BLOCK_K, _round_up(lk, 128))
+    if d > 128:
+        bk = min(bk, 512)
+    if not explicit:
+        ntiles = -(-lk // bk)
+        bk = min(bk, _round_up(-(-lk // ntiles), 128))
+    return bk
+
+
 def reference_lk_pad(lk: int, d: int) -> int:
     """Padded key length of the JAX kernel's default tiling (_flash_call):
     the headroom rule's log2(Lk) term is taken of it."""
-    block_k = min(_JAX_DEFAULT_BLOCK_K, _round_up(lk, 128))
-    if d > 128:
-        block_k = min(block_k, 512)
-    ntiles = -(-lk // block_k)
-    block_k = min(block_k, _round_up(-(-lk // ntiles), 128))
-    return _round_up(lk, block_k)
+    return _round_up(lk, reference_block_k(lk, d))
 
 
 def _q_scale(d: int, dtype: torch.dtype) -> torch.Tensor:
@@ -133,6 +152,80 @@ def flash_attention_plain(q, k, v, *, bounded: bool = True) -> torch.Tensor:
     return (acc / l).to(q.dtype)
 
 
+def _quant_rows_int8(x: torch.Tensor):
+    """Per-(b, token, head) symmetric int8 over head_dim (JAX :394-402).
+    x: (B, L, H, D) -> (int8 (B, L, H, D), fp32 scales (B, H, L))."""
+    s = x.abs().amax(dim=-1).float().clamp_min(1e-6) / 127.0  # (B, L, H)
+    xi = torch.div(x, s[..., None]).round_().to(torch.int8)  # x / s in fp32
+    return xi, s.permute(0, 2, 1).contiguous()
+
+
+def _quant_channels_int8(v: torch.Tensor):
+    """Per-(b, head, channel) symmetric int8 over tokens (JAX :405-413).
+    v: (B, L, H, D) -> (int8 (B, L, H, D), fp32 scales (B, H, D))."""
+    s = v.abs().amax(dim=1).float().clamp_min(1e-6) / 127.0  # (B, H, D)
+    return torch.div(v, s[:, None]).round_().to(torch.int8), s
+
+
+def _transpose_v_int8(vi: torch.Tensor, lk_pad: int) -> torch.Tensor:
+    """int8 V (B, Lk, H, D) -> (B, H, D, lk_pad), zero past Lk, keys of each
+    32-key group stored in the order the kernel's P fragment holds them:
+    position 16h + 4t + 2a + b holds key 16h + 8a + 2t + b."""
+    b, lk, h, d = vi.shape
+    vt = torch.zeros(b, h, d, lk_pad, dtype=torch.int8, device=vi.device)
+    vt[..., :lk] = vi.permute(0, 2, 3, 1)
+    vt = vt.reshape(b, h, d, lk_pad // 32, 2, 2, 4, 2)  # (.., group, h, a, t, b)
+    return vt.permute(0, 1, 2, 3, 4, 6, 5, 7).reshape(b, h, d, lk_pad).contiguous()
+
+
+def _int8_head_dim(d: int) -> None:
+    if d not in INT8_HEAD_DIMS:
+        raise NotImplementedError(
+            f"int8 flash attention takes head dims {INT8_HEAD_DIMS}, not {d} (no path of "
+            "the port needs more; ROADMAP.md queue 2, item 5: int8 attention at "
+            "D in {256, 512})")
+
+
+def flash_attention_int8_plain(q, k, v, *, pv_int8: bool = False,
+                               block_k: Optional[int] = None) -> torch.Tensor:
+    """The int8 kernel's function with its rounding points, walking the keys
+    in tiles of block_k (None: the JAX kernel's default tiling; the kernel's
+    own tile is INT8_BLOCK_K).  q: (B, Lq, H, D); k, v: (B, Lk, H, D)."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    _int8_head_dim(d)
+    bk = reference_block_k(lk, d, block_k)
+    qi, sq = _quant_rows_int8(q_prescale(q))  # q carries scale*log2 e
+    ki, sk = _quant_rows_int8(k)
+    if pv_int8:
+        vq, sv = _quant_channels_int8(v)
+        sv = sv[:, :, None, :]
+    else:
+        vq = v
+    heads = lambda x: x.permute(0, 2, 1, 3)  # noqa: E731  (B, L, H, D) -> (B, H, L, D)
+    qd = heads(qi).double()
+    m = torch.full((b, h, lq, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, h, lq, d, dtype=torch.float32, device=q.device)
+    for j0 in range(0, lk, bk):
+        j1 = min(j0 + bk, lk)
+        # int8 dot products in float64: exact, as the kernel's int32 sums.
+        s_i = (qd @ heads(ki[:, j0:j1]).double().transpose(-1, -2)).float()
+        s = s_i * sq[..., None] * sk[:, :, None, j0:j1]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        if pv_int8:
+            p = torch.exp2(s - m_new + _LOG2_127)  # <= 127
+            pv = (torch.round(p).double() @ heads(vq[:, j0:j1]).double()).float() * sv
+        else:
+            p = torch.exp2(s - m_new)
+            pv = p.to(v.dtype).float() @ heads(vq[:, j0:j1]).float()
+        l = l * alpha + p.sum(dim=-1, keepdim=True)  # the unrounded p
+        acc = acc * alpha + pv
+        m = m_new
+    return heads(acc / l).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
@@ -145,7 +238,7 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         from .cuda_build import library
 
-        lib = library()
+        lib = library("flash_attention")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.drt_flash_headroom.argtypes = [ptr] * 4 + [i32] * 5 + [f32, ptr]
         lib.drt_flash_headroom.restype = i32
@@ -156,6 +249,27 @@ def _lib() -> ctypes.CDLL:
         lib.drt_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
     return _lib_handle
+
+
+_int8_handle: Optional[ctypes.CDLL] = None
+
+
+def _lib_int8() -> ctypes.CDLL:
+    global _int8_handle
+    if _int8_handle is None:
+        from .cuda_build import library
+
+        lib = library("flash_attention_int8")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.drt_flash_attention_int8.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+        lib.drt_flash_attention_int8.restype = i32
+        lib.drt_flash_int8_error_string.argtypes = [i32]
+        lib.drt_flash_int8_error_string.restype = ctypes.c_char_p
+        lib.drt_flash_int8_block_k.restype = i32
+        if lib.drt_flash_int8_block_k() != INT8_BLOCK_K:
+            raise RuntimeError("csrc/flash_attention_int8.cu BK != INT8_BLOCK_K")
+        _int8_handle = lib
+    return _int8_handle
 
 
 def _check_kernel_inputs(q, k, v) -> None:
@@ -227,12 +341,82 @@ def flash_attention_kernel(q, k, v, stats: Optional[torch.Tensor]) -> torch.Tens
     return out
 
 
-def flash_attention(q, k, v, *, bounded: bool = True) -> torch.Tensor:
+class Int8Operands(NamedTuple):
+    """What the int8 kernel reads: int8 q (pre-scaled) and k (B, L, H, D)
+    with fp32 row scales (B, H, L); V as bf16 (B, Lk, H, D), or with pv_int8
+    as transposed int8 (B, H, D, lk_pad) with fp32 channel scales (B, H, D)."""
+
+    qi: torch.Tensor
+    ki: torch.Tensor
+    v: torch.Tensor
+    sq: torch.Tensor
+    sk: torch.Tensor
+    sv: Optional[torch.Tensor]
+    lk_pad: int
+
+
+def int8_operands(q, k, v, *, pv_int8: bool = False) -> Int8Operands:
+    """The int8 kernel's pre-passes (plain torch, as JAX left them to XLA).
+    The V channel scales reduce over all tokens, so they finish before the
+    kernel starts."""
+    _check_kernel_inputs(q, k, v)
+    _int8_head_dim(q.shape[-1])
+    qi, sq = _quant_rows_int8(q_prescale(q))
+    ki, sk = _quant_rows_int8(k)
+    lk_pad = _round_up(k.shape[1], INT8_BLOCK_K)
+    if not pv_int8:
+        return Int8Operands(qi, ki, v, sq, sk, None, lk_pad)
+    vi, sv = _quant_channels_int8(v)
+    return Int8Operands(qi, ki, _transpose_v_int8(vi, lk_pad), sq, sk, sv, lk_pad)
+
+
+def flash_attention_int8_launch(ops: Int8Operands) -> torch.Tensor:
+    """One launch of the int8 kernel on pre-passed operands; returns the
+    bf16 (B, Lq, H, D) output."""
+    b, lq, h, d = ops.qi.shape
+    out = torch.empty(b, lq, h, d, dtype=torch.bfloat16, device=ops.qi.device)
+    with torch.cuda.device(ops.qi.device):
+        err = _lib_int8().drt_flash_attention_int8(
+            ops.qi.data_ptr(), ops.ki.data_ptr(), ops.v.data_ptr(), ops.sq.data_ptr(),
+            ops.sk.data_ptr(), None if ops.sv is None else ops.sv.data_ptr(), out.data_ptr(),
+            b, lq, ops.ki.shape[1], h, d, ops.lk_pad, int(ops.sv is not None),
+            _stream(ops.qi.device))
+    if err != 0:
+        msg = _lib_int8().drt_flash_int8_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_int8 failed to launch: {msg} (code {err})")
+    LAUNCHES["flash_attention_int8"] += 1
+    return out
+
+
+def flash_attention(q, k, v, block_q: Optional[int] = None, block_k: Optional[int] = None,
+                    qk_int8: bool = False, pv_int8: bool = False, bounded: bool = False,
+                    pipelined: bool = False) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v, non-causal; q: (B, Lq, H, D), k, v:
-    (B, Lk, H, D).  bounded=True picks the no-shift branch when the headroom
-    rule holds (the JAX package's default); bounded=False is the online
-    softmax throughout ('pallas_onlinemax')."""
+    (B, Lk, H, D).  The JAX package's signature and defaults:
+
+    bounded=True picks the no-shift branch when the headroom rule holds and
+    the online softmax otherwise; bounded=False is the online softmax
+    throughout.  qk_int8: int8 QK^T (per-token scales); pv_int8 adds int8 P
+    and per-channel int8 V; as in JAX, qk_int8 = (qk_int8 or pv_int8) and
+    not bounded, and bounded with pv_int8 is refused.  block_k sets the
+    int8 plain version's key tile (the int8 result depends on it); the CUDA
+    kernels use their own tiles, and a CUDA call refuses another block_k in
+    int8 mode.  block_q never changes the result (rows are independent)."""
+    if bounded and pipelined:
+        raise NotImplementedError(
+            "flash_attention(bounded=True, pipelined=True) (_flash_kernel_bounded_pipe) is "
+            "not ported yet: ROADMAP.md queue 2, item 6")
+    if bounded and pv_int8:
+        raise ValueError("bounded mode does not compose with int8 (int8 P needs a tight max)")
+    int8 = (qk_int8 or pv_int8) and not bounded
     if q.device.type == "cpu":
+        if int8:
+            return flash_attention_int8_plain(q, k, v, pv_int8=pv_int8, block_k=block_k)
         return flash_attention_plain(q, k, v, bounded=bounded)
+    if int8:
+        if block_k not in (None, INT8_BLOCK_K):
+            raise ValueError(f"the int8 kernel walks keys in tiles of {INT8_BLOCK_K}, "
+                             f"not block_k={block_k}")
+        return flash_attention_int8_launch(int8_operands(q, k, v, pv_int8=pv_int8))
     stats = flash_headroom(q, k, v) if bounded else None
     return flash_attention_kernel(q, k, v, stats)

@@ -1,4 +1,4 @@
-"""The port on the card: the CUDA kernels against their plain version.
+"""The port on the card: the CUDA kernels against their plain versions.
 
 Imports neither JAX nor the JAX package, so that it runs on a machine with
 a card and no JAX (tests/conftest.py imports JAX; skip it there):
@@ -6,10 +6,14 @@ a card and no JAX (tests/conftest.py imports JAX; skip it there):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Every test is marked `cuda` and skips without a CUDA device.  Tolerances:
-the kernels compute in bf16 with fp32 softmax state and round where the
-plain version rounds, so outputs differ by about one bf16 ulp on a few
-elements: max |err| within 2e-2 of max |plain| (no floor) and a relative L2
-error within 1e-2."""
+the attention kernels compute in bf16 with fp32 softmax state and round
+where the plain version rounds, so outputs differ by about one bf16 ulp on
+a few elements: max |err| within 2e-2 of max |plain| (no floor) and a
+relative L2 error within 1e-2; the int8 attention kernel is held to its
+plain version at the kernel's own key tile.  The W8A8 matmul kernel is
+bitwise equal to its plain version per channel (exact int32 core, the same
+fp32 epilogue); grouped, within one bf16 ulp of max |plain| and a relative
+L2 error of 1e-3."""
 
 import math
 
@@ -18,7 +22,10 @@ import torch
 
 from diffusionrenderer_tpu_torch.config import DiTConfig
 from diffusionrenderer_tpu_torch.models.dit import dit_forward, init_dit_params
+from diffusionrenderer_tpu_torch.models.quant import quantize_dit_params, quantize_tensor
 from diffusionrenderer_tpu_torch.ops import flash_attention as tfa
+from diffusionrenderer_tpu_torch.ops import quant_matmul as tqm
+from diffusionrenderer_tpu_torch.ops.attention import attention_xla
 
 pytestmark = pytest.mark.cuda
 
@@ -55,10 +62,11 @@ def assert_close(got, want):
 def test_kernel_matches_plain(cuda, b, lq, lk, h, d, q_scale, branch):
     q, k, v = qkv(cuda, b, lq, lk, h, d, q_scale)
     tfa.reset_counts()
-    got = tfa.flash_attention(q, k, v)
+    got = tfa.flash_attention(q, k, v, bounded=True)
     want = tfa.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_headroom": 1}
+    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_headroom": 1,
+                            "flash_attention_int8": 0}
     assert tfa.branch_counts(cuda)[branch] == 1
     assert_close(got, want)
 
@@ -67,7 +75,8 @@ def test_onlinemax_forced(cuda):
     q, k, v = qkv(cuda, 1, 512, 512, 2, 128)
     tfa.reset_counts()
     got = tfa.flash_attention(q, k, v, bounded=False)
-    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_headroom": 0}
+    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_headroom": 0,
+                            "flash_attention_int8": 0}
     assert tfa.branch_counts(cuda) == {"noshift": 0, "online": 1}
     assert_close(got, tfa.flash_attention_plain(q, k, v, bounded=False))
 
@@ -103,3 +112,81 @@ def test_dit_forward_kernel_vs_plain_attention(cuda):
     assert tfa.LAUNCHES["flash_attention"] == cfg.num_blocks
     want = dit_forward(params, x, sig, cond, ctx, cfg, attn_backend="xla")
     assert_close(got, want)
+
+
+QMM_CASES = [(5120, 4096, 4096, None), (5120, 4096, 4096, 128), (5120, 4096, 16384, None),
+             (5120, 4096, 16384, 128), (5120, 16384, 4096, None), (5120, 16384, 4096, 128),
+             (1000, 4096, 4096, None), (5120, 4096, 4096, 32), (5120, 4096, 4096, 512),
+             (77, 48, 100, None)]
+
+
+@pytest.mark.parametrize("m,k,n,group", QMM_CASES)
+def test_w8a8_kernel_matches_plain(cuda, m, k, n, group):
+    g = torch.Generator(cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    leaf = quantize_tensor((torch.randn(n, k, generator=g, device=cuda) * 0.02).bfloat16(),
+                           act_quant=True, group_size=group)
+    xq, dq = tqm.quantize_activation_fp32(x)
+    tqm.reset_counts()
+    got = tqm.quant_matmul_w8a8_kernel(xq, dq, leaf["q"], leaf["sa"], torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tqm.LAUNCHES["quant_matmul_w8a8"] == 1
+    want = tqm.quant_matmul_w8a8_plain(xq, dq, leaf["q"], leaf["sa"], torch.bfloat16)
+    if group is None:
+        assert torch.equal(got, want)
+    else:
+        wmax = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= 2.0 ** (
+            math.floor(math.log2(wmax)) - 7)
+        assert ((got.float() - want.float()).norm() / want.float().norm()).item() <= 1e-3
+
+
+def test_w8a8_kernel_refuses_illegal_shapes(cuda):
+    xq = torch.zeros(64, 40, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tqm.quant_matmul_w8a8_kernel(xq, torch.ones(64, device=cuda),
+                                     torch.zeros(32, 40, dtype=torch.int8, device=cuda),
+                                     torch.ones(32, device=cuda), torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", [(5, 1024, 1024, 32, 128), (2, 1000, 777, 4, 128),
+                                         (1, 300, 200, 2, 64)])
+@pytest.mark.parametrize("pv8", [False, True], ids=["qk8", "qk8pv8"])
+def test_int8_attention_kernel_matches_plain(cuda, b, lq, lk, h, d, pv8):
+    q, k, v = qkv(cuda, b, lq, lk, h, d)
+    tfa.reset_counts()
+    got = tfa.flash_attention(q, k, v, qk_int8=True, pv_int8=pv8)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_headroom": 0,
+                            "flash_attention_int8": 1}
+    assert_close(got, tfa.flash_attention_int8_plain(q, k, v, pv_int8=pv8,
+                                                     block_k=tfa.INT8_BLOCK_K))
+    # Within the JAX package's int8 bounds of exact attention, or of what the
+    # same algorithm at the JAX kernel's own tiling reaches on these inputs.
+    exact = attention_xla(q, k, v).float()
+    alg = (tfa.flash_attention_int8_plain(q, k, v, pv_int8=pv8).float() - exact).abs().max()
+    assert (got.float() - exact).abs().max() <= max(0.025 if pv8 else 0.012, 1.1 * alg.item())
+
+
+def test_int8_attention_refuses_wide_heads(cuda):
+    q, k, v = qkv(cuda, 1, 64, 64, 1, 256)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfa.flash_attention(q, k, v, pv_int8=True)
+
+
+def test_w8a8_dit_forward_kernels_vs_plain(cuda):
+    """A 2-block DiT at full head width, W8A8 (per channel): every block
+    matmul launches the W8A8 kernel and pallas_pv_int8 the int8 attention."""
+    cfg = DiTConfig(model_channels=1024, num_blocks=2, num_heads=8)
+    params = quantize_dit_params(init_dit_params(cfg, device=cuda, dtype=torch.bfloat16),
+                                 act_quant=True)
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn(2, 1, 32, 32, 16, generator=g, device=cuda).bfloat16()
+    cond = torch.randn(2, 1, 32, 32, 16, generator=g, device=cuda).bfloat16()
+    sig, ctx = torch.tensor([3.0, 0.5], device=cuda), torch.tensor([0, 3], device=cuda)
+    tqm.reset_counts()
+    tfa.reset_counts()
+    out = dit_forward(params, x, sig, cond, ctx, cfg, attn_backend="pallas_pv_int8")
+    assert tqm.LAUNCHES["quant_matmul_w8a8"] == 6 * cfg.num_blocks
+    assert tfa.LAUNCHES["flash_attention_int8"] == cfg.num_blocks
+    assert torch.isfinite(out).all()

@@ -135,8 +135,9 @@ def test_dispatcher_routing_on_cpu():
     torch.testing.assert_close(attention(q, k, v), xla)  # 'auto' on the CPU
     torch.testing.assert_close(attention(q, k, v, backend="pallas"), xla,
                                rtol=2e-5, atol=2e-5)
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
-        attention(q, k, v, backend="pallas_pv_int8")
+    # 'pallas_pv_int8' is the int8 QK^T + int8 PV online-softmax path.
+    torch.testing.assert_close(attention(q, k, v, backend="pallas_pv_int8"),
+                               tfa.flash_attention_int8_plain(q, k, v, pv_int8=True))
     with pytest.raises(ValueError):
         attention(q, k, v, backend="triton")
 

@@ -28,8 +28,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=120, check=True)
     report = json.loads(res.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
-    for mod in ("api", "checkpoint", "pipeline", "models.dit", "models.vae",
-                "ops.attention", "ops.flash_attention", "ops.cuda_build", "sampling.edm"):
+    for mod in ("api", "checkpoint", "pipeline", "models.dit", "models.vae", "models.quant",
+                "models.calibrate", "ops.attention", "ops.flash_attention", "ops.quant_matmul",
+                "ops.cuda_build", "sampling.edm"):
         assert f"diffusionrenderer_tpu_torch.{mod}" in report["imported"]
 
 
