@@ -41,7 +41,28 @@ Phases (any failure raises and exits non-zero):
   12. int8 attention path - one W8A8 DiT forward with
                attn_backend='pallas_pv_int8': 28 int8 attention launches.
   13. profile of one W8A8 DiT forward, and the activation pre-pass time.
-  14. timings - each bf16 attention kernel, its plain version and the
+  14. kernels 3, 6 and 7 vs their plain versions: the partial-stats kernel
+               (out, m and l) and the two bounded-shift kernels at the DiT
+               shape, the VAE's D=512 and a ragged length; kernel 6 must be
+               bitwise equal to kernel 7.
+  15. ring merge on one card - the flagship shape's keys in 4 shards,
+               kernel 3 on each, merged by the ring's _merge and normalized,
+               against kernel 2's exact attention over all keys.
+  16. sharded main path - a one-rank NCCL group started here, then
+               load_pipeline() + pipe.shard(make_mesh(1, data=1, seq=1,
+               tensor=1), sp_attn='ring') + inverse_render(): every DiT
+               attention call launches kernel 3 (28 x 15 per call); one DiT
+               forward on this path vs the unsharded kernel path, and one
+               with sp_attn='flash_sp' (kernel 2 on the all-gathered KV)
+               bitwise against the unsharded 'pallas_onlinemax' forward.
+  17. bounded-shift DiT forwards - one DiT forward with
+               flash_attention(bounded=True, pipelined=True) as its attention
+               (kernel 6, 28 launches) and one with
+               flash_attention_bounded_shift (kernel 7): bitwise equal, and
+               near the kernel path's forward.
+  18. timings of kernels 3, 6 and 7 at the DiT and flagship shapes beside
+               kernel 2 and their yardsticks.
+  19. timings - each bf16 attention kernel, its plain version and the
                library call at the main path's attention shapes.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
@@ -52,6 +73,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -778,9 +800,10 @@ def prepass_per_forward(qmm_recs):
     return get_inverse_renderer_config(512, 512, 1).net.num_blocks * per_block
 
 
-def kernel_records(main_rec, max_err, max_stats_err, quant):
+def kernel_records(main_rec, max_err, max_stats_err, quant, var):
     """Per-kernel numbers at the main path's shapes.  `quant` carries the
-    int8 kernels' numbers from phases 5, 6, 10 and 12."""
+    int8 kernels' numbers from phases 5, 6, 10 and 12, `var` kernels 3, 6
+    and 7's from phases 14 to 18."""
     import torch
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
 
@@ -824,6 +847,7 @@ def kernel_records(main_rec, max_err, max_stats_err, quant):
          **head_shapes[0], "main_path_shapes": head_shapes},
         w8a8_record(quant),
         int8_attention_record(quant),
+        *variant_records(var),
     ]
 
 
@@ -860,6 +884,338 @@ def int8_attention_record(quant):
             "bound_by": dit["pv8_bound_by"], "library_ms": dit["library_ms"],
             "library": "F.scaled_dot_product_attention bf16", "shape": list(DIT_SHAPE),
             "prepass_ms": dit["pv8_prepass_ms"], "timings": quant["fa8_timings"]}
+
+
+# ---------------------------------------------------------------------------
+# Kernels 3, 6 and 7 and the sharded path
+# ---------------------------------------------------------------------------
+
+def partial_bound(shape):
+    """(bound_ms, bound_by) of one partial-stats call: the attention's bytes
+    plus m and l written (2 fp32 per query row), against the bf16 products
+    and the online softmax's fp32 work per score (max, shift, exp2, sum)."""
+    b, lq, lk, h, d = shape
+    nbytes = (2 * lq + 2 * lk) * b * h * d * 2 + 2 * b * h * lq * 4
+    scores = b * lq * lk * h
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(4 * scores * d / PEAK_BF16_FLOPS, 4 * scores / PEAK_FP32_FLOPS)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bounded_bound(shape):
+    """(bound_ms, bound_by) of one bounded-shift call: the attention's bytes
+    plus the fp32 row bound read, against the bf16 products and 3 fp32
+    operations per score (the shift, exp2, the sum)."""
+    b, lq, lk, h, d = shape
+    nbytes = (2 * lq + 2 * lk) * b * h * d * 2 + b * h * lq * 4
+    scores = b * lq * lk * h
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(4 * scores * d / PEAK_BF16_FLOPS, 3 * scores / PEAK_FP32_FLOPS)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def variant_case(name, shape, *, rms_normed, seed):
+    """Kernels 3, 6 and 7 vs their plain versions on one input; kernel 6 vs
+    kernel 7 bitwise.  Returns the case's record."""
+    import torch
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = make_qkv(shape, rms_normed=rms_normed, seed=seed)
+    fa.reset_counts()
+    out, m, l = fa.flash_attention_partial(q, k, v)
+    pipe = fa.flash_attention(q, k, v, bounded=True, pipelined=True)
+    shift = fa.flash_attention_bounded_shift(q, k, v)
+    torch.cuda.synchronize()
+    launches = {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES}
+    branches = fa.branch_counts("cuda")
+    rec = {"case": name, "shape": list(shape), "launches": launches, "branches": branches,
+           "kernel6_bitwise_kernel7": bool(torch.equal(pipe, shift))}
+    oks = []
+    for key, got, want in zip(("partial_out", "partial_m", "partial_l"), (out, m, l),
+                              fa.flash_attention_partial_plain(q, k, v)):
+        err, rel, ok = compare(got, want)
+        rec[key] = {"max_abs_err": err, "tol": MAX_TOL * want.float().abs().max().item(),
+                    "rel_l2": rel}
+        oks.append(ok)
+    err, rel, ok = compare(shift, fa.flash_attention_bounded_plain(q, k, v))
+    rec["bounded"] = {"max_abs_err": err, "rel_l2": rel}
+    oks.append(ok)
+    say("  variants " + json.dumps(rec))
+    check(all(oks), f"{name}: kernel 3 or 7 disagrees with its plain version")
+    check(rec["kernel6_bitwise_kernel7"], f"{name}: kernel 6 is not bitwise equal to kernel 7")
+    check(launches == {"flash_attention": 0, "flash_attention_headroom": 0,
+                       "flash_attention_int8": 0, "flash_attention_partial": 1,
+                       "flash_attention_bounded_pipe": 1, "flash_attention_bounded": 1},
+          f"{name}: launch counters wrong")
+    check(branches == {"noshift": 0, "online": 0}, f"{name}: the branch tally moved")
+    return rec
+
+
+def variants_phase():
+    recs = [variant_case("dit", DIT_SHAPE, rms_normed=True, seed=50),
+            variant_case("vae_d512", VAE_ENC_SHAPE, rms_normed=False, seed=51),
+            variant_case("ragged", (2, 1000, 777, 8, 128), rms_normed=True, seed=52),
+            variant_case("ragged_d512", (1, 1000, 1200, 1, 512), rms_normed=False, seed=53)]
+    return max(max(r[k]["max_abs_err"] for k in ("partial_out", "partial_m", "partial_l",
+                                                  "bounded")) for r in recs), recs
+
+
+def ring_merge_phase(shards: int = 4):
+    """The ring's merge on one card: kernel 3 over each of `shards` key
+    shards of the flagship shape, combined by parallel.ring_attention._merge
+    and normalized, against kernel 2 over all keys."""
+    import torch
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.parallel.ring_attention import _merge, _partial_attn_flash
+
+    q, k, v = make_qkv(FLAGSHIP_SHAPE, rms_normed=True, seed=54)
+    lk = k.shape[1]
+    state = None
+    for i in range(shards):
+        a, z = i * lk // shards, (i + 1) * lk // shards
+        part = _partial_attn_flash(q, k[:, a:z].contiguous(), v[:, a:z].contiguous())
+        state = part if state is None else _merge(state, part)
+    _, l, o = state
+    got = (o / l.permute(0, 2, 1)[..., None]).to(q.dtype)
+    want = fa.flash_attention_kernel(q, k, v, None)
+    err, rel, ok = compare(got, want)
+    rec = {"shape": list(FLAGSHIP_SHAPE), "shards": shards, "max_abs_err": err,
+           "tol": MAX_TOL * want.float().abs().max().item(), "rel_l2": rel}
+    say("ring_merge " + json.dumps(rec))
+    check(ok, "ring merge of kernel-3 shards disagrees with kernel 2's exact attention")
+    del q, k, v, state, l, o, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_main_path_phase(unsharded_warm_s: float):
+    """A one-rank NCCL group, then the sharded inverse render with ring
+    attention at full width; returns (pipe, mesh, record)."""
+    import numpy as np
+    import torch
+    from diffusionrenderer_tpu_torch.api import INVERSE_PASSES, inverse_render, load_pipeline
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed(init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    import torch.distributed as dist
+
+    check(dist.get_backend() == "nccl", f"process group backend {dist.get_backend()}, not nccl")
+    mesh = make_mesh(1, data=1, seq=1, tensor=1)
+    pipe = load_pipeline().shard(mesh, sp_attn="ring")
+    net = get_inverse_renderer_config(512, 512, 1).net
+    image = np.random.default_rng(0).integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)
+    expected = pipe.num_steps * net.num_blocks
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    out = inverse_render(pipe, image)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES}
+    rec = {"mode": "sharded_ring_1rank", "backend": dist.get_backend(), "wall_s": wall,
+           **{f"{k}_s": v for k, v in pipe.timings.items()},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches, "expected_partial_launches": expected,
+           "branches": fa.branch_counts("cuda")}
+    check(sorted(out) == sorted(INVERSE_PASSES), f"passes {sorted(out)}")
+    for name, arr in out.items():
+        check(arr.shape == (1, 512, 512, 3), f"{name} shape {arr.shape}")
+        check(bool(np.isfinite(arr).all()) and arr.min() >= 0.0 and arr.max() <= 1.0,
+              f"{name}: values not finite in [0, 1]")
+    check(launches["flash_attention_partial"] == expected,
+          f"kernel 3: {launches['flash_attention_partial']} launches, expected {expected}")
+    # The VAE's mid-block attention (encode and decode) keeps kernel 1.
+    check(launches["flash_attention"] == 2 and launches["flash_attention_headroom"] == 2,
+          f"VAE attention launches {launches}")
+    t0 = time.perf_counter()
+    inverse_render(pipe, image)
+    torch.cuda.synchronize()
+    rec["warm"] = {"wall_s": time.perf_counter() - t0,
+                   **{f"{k}_s": v for k, v in pipe.timings.items()},
+                   "denoise_step_s": pipe.timings["denoise"] / pipe.num_steps}
+    rec["unsharded_warm_wall_s"] = unsharded_warm_s
+    rec["warm_vs_unsharded"] = rec["warm"]["wall_s"] / unsharded_warm_s
+    say("main_path_sharded " + json.dumps(rec))
+    return pipe, mesh, rec
+
+
+def sharded_forward_phase(pipe, mesh):
+    """One DiT forward on the sharded ring path and one with 'flash_sp',
+    against the unsharded kernel path ('auto') and, bitwise, against the
+    unsharded 'pallas_onlinemax' forward (kernel 2 on the same operands)."""
+    import torch
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+    from diffusionrenderer_tpu_torch.models.dit import dit_forward
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    net = get_inverse_renderer_config(512, 512, 1).net
+    x, sigma, cond, ctx = dit_inputs(6)
+    params = pipe.dit_params
+    with torch.no_grad():
+        base = dit_forward(params, x, sigma, cond, ctx, net)
+        fa.reset_counts()
+        ring = dit_forward(params, x, sigma, cond, ctx, net, attn_backend="ring", mesh=mesh)
+        torch.cuda.synchronize()
+        ring_launches = fa.VARIANT_LAUNCHES["flash_attention_partial"]
+        fa.reset_counts()
+        sp = dit_forward(params, x, sigma, cond, ctx, net, attn_backend="flash_sp", mesh=mesh)
+        torch.cuda.synchronize()
+        sp_launches = dict(fa.LAUNCHES)
+        sp_branches = fa.branch_counts("cuda")
+        online = dit_forward(params, x, sigma, cond, ctx, net, attn_backend="pallas_onlinemax")
+    rec = {"ring_vs_unsharded_rel_l2": rel_l2(ring, base), "ring_kernel3_launches": ring_launches,
+           "flash_sp_bitwise_pallas_onlinemax": bool(torch.equal(sp, online)),
+           "flash_sp_launches": sp_launches, "flash_sp_branches": sp_branches,
+           "finite": bool(torch.isfinite(ring).all() and torch.isfinite(sp).all())}
+    say("sharded_forward " + json.dumps(rec))
+    check(ring_launches == net.num_blocks, f"ring forward: {ring_launches} kernel-3 launches")
+    check(rec["finite"], "sharded forward: non-finite output")
+    check(rec["ring_vs_unsharded_rel_l2"] <= 2e-2, "ring forward vs unsharded kernel path")
+    check(sp_launches["flash_attention"] == net.num_blocks
+          and sp_launches["flash_attention_headroom"] == 0
+          and sp_branches == {"noshift": 0, "online": net.num_blocks},
+          f"flash_sp forward: launches {sp_launches}, branches {sp_branches}")
+    check(rec["flash_sp_bitwise_pallas_onlinemax"],
+          "flash_sp forward is not bitwise equal to the pallas_onlinemax forward")
+    return rec
+
+
+def bounded_forward_phase(params):
+    """The bounded-shift entry points on the DiT: one forward with
+    flash_attention(bounded=True, pipelined=True) as its attention (kernel
+    6), one with flash_attention_bounded_shift (kernel 7)."""
+    import functools
+
+    import torch
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+    from diffusionrenderer_tpu_torch.models.dit import dit_forward
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    net = get_inverse_renderer_config(512, 512, 1).net
+    x, sigma, cond, ctx = dit_inputs(7)
+    with torch.no_grad():
+        base = dit_forward(params, x, sigma, cond, ctx, net)
+        fa.reset_counts()
+        pipe = dit_forward(params, x, sigma, cond, ctx, net,
+                           attn_backend=functools.partial(fa.flash_attention, bounded=True,
+                                                          pipelined=True))
+        torch.cuda.synchronize()
+        pipe_launches = dict(fa.VARIANT_LAUNCHES)
+        fa.reset_counts()
+        shift = dit_forward(params, x, sigma, cond, ctx, net,
+                            attn_backend=fa.flash_attention_bounded_shift)
+        torch.cuda.synchronize()
+        shift_launches = dict(fa.VARIANT_LAUNCHES)
+    rec = {"kernel6_launches": pipe_launches["flash_attention_bounded_pipe"],
+           "kernel7_launches": shift_launches["flash_attention_bounded"],
+           "bitwise_equal": bool(torch.equal(pipe, shift)),
+           "vs_kernel_path_rel_l2": rel_l2(shift, base),
+           "finite": bool(torch.isfinite(shift).all())}
+    say("bounded_forward " + json.dumps(rec))
+    check(rec["kernel6_launches"] == net.num_blocks and rec["kernel7_launches"] == net.num_blocks,
+          f"bounded forwards: launches {pipe_launches} / {shift_launches}")
+    check(rec["bitwise_equal"], "kernel-6 forward is not bitwise equal to the kernel-7 forward")
+    check(rec["finite"] and rec["vs_kernel_path_rel_l2"] <= 2e-2,
+          "bounded forward vs the kernel path")
+    return rec
+
+
+def variant_timings_phase():
+    """Kernels 3, 6 and 7 (and kernel 2) at the DiT and flagship shapes,
+    their plain versions (2 heads at the flagship shape), the row bound's
+    pre-pass, and the yardsticks: aten._scaled_dot_product_flash_attention
+    (output with its log-sum-exp) for kernel 3, F.scaled_dot_product_attention
+    for kernels 6 and 7."""
+    import torch
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    recs = {}
+    for label, shape, reps in (("dit", DIT_SHAPE, 20), ("flagship", FLAGSHIP_SHAPE, 5)):
+        q, k, v = make_qkv(shape, rms_normed=True, seed=55)
+        mb = fa.row_bound(q, k)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        rec = {"shape": list(shape),
+               "kernel3_ms": time_ms(lambda: fa.flash_attention_partial_kernel(q, k, v), reps),
+               "kernel6_ms": time_ms(lambda: fa.flash_attention_bounded_kernel(
+                   q, k, v, mb, pipelined=True), reps),
+               "kernel7_ms": time_ms(lambda: fa.flash_attention_bounded_kernel(
+                   q, k, v, mb, pipelined=False), reps),
+               "kernel2_ms": time_ms(lambda: fa.flash_attention_kernel(q, k, v, None), reps),
+               "row_bound_ms": time_ms(lambda: fa.row_bound(q, k), reps),
+               "library_lse_ms": time_ms(
+                   lambda: torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt), reps),
+               "library_ms": sdpa_ms(q, k, v, reps)}
+        rec["kernel3_bound_ms"], rec["kernel3_bound_by"] = partial_bound(shape)
+        rec["bounded_bound_ms"], rec["bounded_bound_by"] = bounded_bound(shape)
+        if label == "dit":
+            rec["kernel3_plain_ms"] = time_ms(lambda: fa.flash_attention_partial_plain(q, k, v),
+                                              2, warmup=1)
+            rec["bounded_plain_ms"] = time_ms(lambda: fa.flash_attention_bounded_plain(q, k, v),
+                                              2, warmup=1)
+        else:
+            q2, k2, v2 = (x[:, :, :2].contiguous() for x in (q, k, v))
+            rec["kernel3_plain_ms_2_heads"] = time_ms(
+                lambda: fa.flash_attention_partial_plain(q2, k2, v2), 1, warmup=0)
+            rec["bounded_plain_ms_2_heads"] = time_ms(
+                lambda: fa.flash_attention_bounded_plain(q2, k2, v2), 1, warmup=0)
+            del q2, k2, v2
+        b, lq, lk, h, d = shape
+        for key in ("kernel3", "kernel6", "kernel7", "kernel2"):
+            rec[f"{key}_tflops"] = 4 * b * lq * lk * h * d / rec[f"{key}_ms"] / 1e9
+        say(f"  variant timings {label} " + json.dumps(rec))
+        recs[label] = rec
+        del q, k, v, mb, qt, kt, vt
+        torch.cuda.empty_cache()
+    return recs
+
+
+def variant_records(var):
+    """Rows 3, 6 and 7 of the kernel table: the DiT shape's numbers, the
+    flagship's beside them."""
+    src = "diffusionrenderer_tpu_torch/csrc/flash_attention.cu"
+    dit, flag = var["timings"]["dit"], var["timings"]["flagship"]
+    common = {"route": "cuda", "source": src, "max_abs_err": var["max_err"],
+              "shape": list(DIT_SHAPE)}
+    return [
+        {"name": "flash_attention_partial", **common,
+         "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:121 (_flash_kernel_partial) "
+                     "and :384 (_flash_kernel_partial_bias), via flash_attention_partial :766",
+         "launches": var["sharded"]["launches"]["flash_attention_partial"],
+         "ms": dit["kernel3_ms"], "plain_ms": dit["kernel3_plain_ms"],
+         "bound_ms": dit["kernel3_bound_ms"], "bound_by": dit["kernel3_bound_by"],
+         "library_ms": dit["library_lse_ms"],
+         "library": "torch.ops.aten._scaled_dot_product_flash_attention (output + logsumexp)",
+         "flagship": {k: flag[k] for k in ("kernel3_ms", "kernel3_bound_ms", "library_lse_ms",
+                                           "kernel3_plain_ms_2_heads", "kernel2_ms")}},
+        {"name": "flash_attention_bounded_pipe", **common,
+         "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:262 (_flash_kernel_bounded_pipe)",
+         "launches": var["bounded_forward"]["kernel6_launches"],
+         "launches_path": "dit_forward(attn_backend=flash_attention(bounded=True, pipelined=True))",
+         "ms": dit["kernel6_ms"], "plain_ms": dit["bounded_plain_ms"],
+         "bound_ms": dit["bounded_bound_ms"], "bound_by": dit["bounded_bound_by"],
+         "library_ms": dit["library_ms"], "library": "F.scaled_dot_product_attention bf16",
+         "row_bound_prepass_ms": dit["row_bound_ms"],
+         "flagship": {k: flag[k] for k in ("kernel6_ms", "bounded_bound_ms", "library_ms",
+                                           "bounded_plain_ms_2_heads", "row_bound_ms")}},
+        {"name": "flash_attention_bounded", **common,
+         "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:130 (_flash_kernel_bounded)",
+         "launches": var["bounded_forward"]["kernel7_launches"],
+         "launches_path": "dit_forward(attn_backend=flash_attention_bounded_shift)",
+         "ms": dit["kernel7_ms"], "plain_ms": dit["bounded_plain_ms"],
+         "bound_ms": dit["bounded_bound_ms"], "bound_by": dit["bounded_bound_by"],
+         "library_ms": dit["library_ms"], "library": "F.scaled_dot_product_attention bf16",
+         "row_bound_prepass_ms": dit["row_bound_ms"],
+         "flagship": {k: flag[k] for k in ("kernel7_ms", "bounded_bound_ms", "library_ms",
+                                           "bounded_plain_ms_2_heads", "row_bound_ms")}},
+    ]
 
 
 def main() -> int:
@@ -930,9 +1286,31 @@ def main() -> int:
     del w8a8_params
     torch.cuda.empty_cache()
     say(f"  phase 13: {time.perf_counter() - t:.1f} s")
-    t = phase("14 kernel timings at the main path's shapes")
-    records = kernel_records(main_rec, max_err, max_stats_err, quant)
-    say(f"  phase 14: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
+    var = {}
+    t = phase("14 kernels 3, 6 and 7 vs plain")
+    var["max_err"], var["cases"] = variants_phase()
+    say(f"  phase 14: {time.perf_counter() - t:.1f} s")
+    t = phase("15 ring merge of kernel-3 shards on one card")
+    var["ring_merge"] = ring_merge_phase()
+    say(f"  phase 15: {time.perf_counter() - t:.1f} s")
+    t = phase("16 sharded main path: one-rank NCCL mesh, sp_attn='ring'")
+    pipe, mesh, var["sharded"] = sharded_main_path_phase(main_rec["warm"]["wall_s"])
+    var["sharded_forward"] = sharded_forward_phase(pipe, mesh)
+    say(f"  phase 16: {time.perf_counter() - t:.1f} s")
+    t = phase("17 bounded-shift DiT forwards: kernels 6 and 7")
+    var["bounded_forward"] = bounded_forward_phase(pipe.dit_params)
+    del pipe
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    say(f"  phase 17: {time.perf_counter() - t:.1f} s")
+    t = phase("18 timings of kernels 3, 6 and 7")
+    var["timings"] = variant_timings_phase()
+    say(f"  phase 18: {time.perf_counter() - t:.1f} s")
+    t = phase("19 kernel timings at the main path's shapes")
+    records = kernel_records(main_rec, max_err, max_stats_err, quant, var)
+    say(f"  phase 19: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
     say(card)  # again here: the end of a long log is what survives
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

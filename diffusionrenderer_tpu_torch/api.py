@@ -139,7 +139,8 @@ def inverse_render(
     both give the same result.  resume_dir makes the serial job durable:
     each finished pass is written atomically to <resume_dir>/<pass>.npy
     beside a manifest of the job's identity, and a re-run computes only the
-    missing passes (a different job in the directory raises)."""
+    missing passes (a different job in the directory raises); on a sharded
+    pipeline every rank computes and reads, and rank 0 alone writes."""
     pipeline.set_model_type("inverse")
     pipeline.guidance = guidance
     pipeline.seed = seed
@@ -149,10 +150,12 @@ def inverse_render(
     outputs: Dict[str, np.ndarray] = {}
 
     done: Dict[str, np.ndarray] = {}
+    writer = pipeline.mesh is None or pipeline.mesh.rank == 0
     if resume_dir is not None:
         batch_passes = False
         fp = _job_fingerprint(video, pipeline, seed, guidance)
-        os.makedirs(resume_dir, exist_ok=True)
+        if writer:
+            os.makedirs(resume_dir, exist_ok=True)
         manifest_path = os.path.join(resume_dir, "manifest.json")
         if os.path.exists(manifest_path):
             with open(manifest_path) as f:
@@ -163,7 +166,7 @@ def inverse_render(
                     f"resume_dir {resume_dir!r} holds a different job "
                     f"(mismatched: {mismatch}); point at a fresh directory "
                     "or delete the stale one")
-        else:
+        elif writer:
             tmp = manifest_path + ".tmp"
             with open(tmp, "w") as f:
                 json.dump(fp, f)
@@ -195,7 +198,7 @@ def inverse_render(
             ctx = np.full((b,), GBUFFER_INDEX_MAPPING[p], np.int64)
             raw_u8 = pipeline.generate({"rgb": vid, "video": vid, "context_index": ctx},
                                        normalize_normal=(p == "normal"), seed=seed)
-            if resume_dir is not None:
+            if resume_dir is not None and writer:
                 path = os.path.join(resume_dir, f"{p}.npy")
                 np.save(path + ".tmp.npy", raw_u8)
                 os.replace(path + ".tmp.npy", path)

@@ -1,21 +1,31 @@
-// Bounded flash attention for Hopper (sm_90a), bf16 in, fp32 softmax state.
+// Flash attention for Hopper (sm_90a), bf16 in, fp32 softmax state.
 //
-// Replaces the two Pallas kernels of diffusionrenderer_tpu/ops/flash_attention.py
-// that the inverse render runs:
+// Replaces the bf16 Pallas kernels of diffusionrenderer_tpu/ops/flash_attention.py:
 //   * _flash_kernel_noshift (:185-259) - p = exp2(s) with no max shift, taken
-//     when the headroom rule of _bounded_cond_call (:488-491) holds;
+//     when the headroom rule of _bounded_cond_call (:488-491) holds (kernel 1);
 //   * _flash_kernel / _flash_kernel_nobias (:58-118) - the online-softmax
-//     fallback, and the whole of backend='pallas_onlinemax'.
-// Both are one templated body (attend<D, kNoShift>).  The branch is chosen on
-// the device, without a host sync: headroom_kernel reduces the Cauchy-Schwarz
-// bound (max ||q_i|| * max ||k_j|| per (b, h)) and max |v| into a small stats
-// buffer, and every block of flash_attention_kernel reads the same buffer and
-// so takes the same branch.
+//     fallback, and the whole of backend='pallas_onlinemax' (kernel 2);
+//   * _flash_kernel_partial / _flash_kernel_partial_bias (:121, :384, through
+//     flash_attention_partial :766) - kernel 2 plus the per-row running max m
+//     (log2 domain) and normalizer l, the inner block of ring attention
+//     (kernel 3, flash_partial_kernel);
+//   * _flash_kernel_bounded (:130-182) - p = exp2(s - mb_i) with the
+//     Cauchy-Schwarz row bound mb_i = ||q'_i|| * max_j ||k_j|| computed by the
+//     caller (kernel 7, flash_bounded_kernel<D, false>);
+//   * _flash_kernel_bounded_pipe (:262-314, flash_attention(bounded=True,
+//     pipelined=True)) - the same function with the score tile carried one key
+//     tile ahead (kernel 6, flash_bounded_kernel<D, true>).
+// All are one templated body (attend<D, Mode>).  Kernels 1 and 2 are one launch:
+// the branch is chosen on the device, without a host sync: headroom_kernel
+// reduces the bound (max ||q_i|| * max ||k_j|| per (b, h)) and max |v| into a
+// small stats buffer, and every block of flash_attention_kernel reads the same
+// buffer and so takes the same branch.  Kernels 3, 6 and 7 are launches of
+// their own, with no headroom launch and no branch tally.
 //
-// What bounds it on an H100: 4*Lq*Lk*H*D matmul operations against (Lq + 2 Lk)
-// *H*D*2 bytes, so at the DiT's D=128 it is tensor-core bound (13 TFLOP at the
-// 28,160-token flagship shape, ~13 ms at 989 TFLOP/s), with Lq*Lk*H exp2 on the
-// SFUs next (~6-7 ms).  This first version keeps the design simple:
+// What bounds them on an H100: 4*Lq*Lk*H*D matmul operations against (Lq + 2 Lk)
+// *H*D*2 bytes, so at the DiT's D=128 they are tensor-core bound (13 TFLOP at
+// the 28,160-token flagship shape, ~13 ms at 989 TFLOP/s), with Lq*Lk*H exp2 on
+// the SFUs next (~6-7 ms).  This version keeps the design simple:
 //   * one 128-thread block per (query tile, head, batch), a loop over key
 //     tiles in place of the TPU's sequential grid axis;
 //   * K and V tiles double-buffered in shared memory with cp.async, keys past
@@ -31,7 +41,7 @@
 //
 // Rounding points follow the JAX kernels: q is pre-scaled by the bf16-rounded
 // softmax_scale*log2(e) and rounded back to bf16; P is cast to bf16 before PV;
-// l and acc are fp32; max(l, 1e-37) only in the no-shift branch.
+// l and acc are fp32; max(l, 1e-37) in the no-shift and bounded modes only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +86,9 @@ struct AttnArgs {
   float q_scale;        // softmax_scale * log2(e), rounded to bf16
   float log2_lk_pad;
   int bounded;
+  const float* mb;      // (B, H, Lq) row bound of the bounded modes
+  float* m_out;         // (B, H, Lq) running max and normalizer of kPartial
+  float* l_out;
 };
 
 struct HeadArgs {
@@ -203,15 +216,27 @@ __global__ void __launch_bounds__(kThreads) headroom_kernel(HeadArgs p) {
 // Attention body.  Warp (wr, wd) owns query rows wr*16..+16 and head-dim slice
 // wd*DS..+DS.  Fragment layouts are those of mma.m16n8k16: thread (g, t4) =
 // (lane / 4, lane % 4) holds rows g and g+8, columns t4*2 and t4*2+1 of each
-// 8-wide n-tile.
+// 8-wide n-tile.  The modes differ only in the softmax of a score tile, the
+// finalize and, for kBoundedPipe, the order of the loop:
+//   kNoShift      p = exp2(s); l clamped at 1e-37                 (kernel 1)
+//   kOnline       running max m, alpha rescale of l and acc       (kernel 2)
+//   kPartial      kOnline, plus m and l stored per query row      (kernel 3)
+//   kBounded      p = exp2(s - mb_i) with the row bound mb_i read
+//                 from memory: no max, no rescale; l clamped      (kernel 7)
+//   kBoundedPipe  kBounded with tile j+1's QK^T issued before tile
+//                 j's exp2 and PV                                  (kernel 6)
 // ---------------------------------------------------------------------------
-template <int D, bool kNoShift>
+enum Mode { kNoShift, kOnline, kPartial, kBounded, kBoundedPipe };
+
+template <int D, Mode kMode>
 __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
   using C = Cfg<D>;
   constexpr int NS = C::BK / 8;   // S n-tiles
   constexpr int KS = C::DS / 16;  // k-steps of QK^T over the warp's D slice
   constexpr int NO = C::DS / 8;   // output n-tiles
   constexpr int KP = C::BK / 16;  // k-steps of PV
+  constexpr bool kRunningMax = kMode == kOnline || kMode == kPartial;
+  constexpr bool kRowBound = kMode == kBounded || kMode == kBoundedPipe;
   static_assert(NO % 2 == 0, "ldmatrix.x4 loads two output n-tiles");
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -224,6 +249,7 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
   const __nv_bfloat16* qb = p.q + (long long)b * p.Lq * row_stride + (long long)h * D;
   const __nv_bfloat16* kb = p.k + (long long)b * p.Lk * row_stride + (long long)h * D;
   const __nv_bfloat16* vb = p.v + (long long)b * p.Lk * row_stride + (long long)h * D;
+  const long long bh_rows = ((long long)b * p.H + h) * p.Lq;  // (B, H, Lq) row stats
 
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Vs = Ks + 2 * C::BK * C::PITCH;
@@ -239,8 +265,16 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
     qf[ks][2] = load_q_pair(qb + (long long)r0 * row_stride + d + 8, ok0, p.q_scale);
     qf[ks][3] = load_q_pair(qb + (long long)r1 * row_stride + d + 8, ok1, p.q_scale);
   }
+  // The bounded modes' fixed per-row shift (padded rows are never stored).
+  float mb0 = 0.f, mb1 = 0.f;
+  if constexpr (kRowBound) {
+    if (ok0) mb0 = p.mb[bh_rows + r0];
+    if (ok1) mb1 = p.mb[bh_rows + r1];
+  }
 
-  auto load_tile = [&](int stage, int tile) {
+  // cp.async of the key tile's rows of K or V into a stage; keys past Lk
+  // are zero-filled (and masked in `scores`).
+  auto load_rows = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int stage, int tile) {
     constexpr int CPR = D / 8;  // 16-byte chunks per row
     const int k0 = tile * C::BK;
 #pragma unroll 4
@@ -249,33 +283,12 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
       const int key = k0 + r;
       const bool ok = key < p.Lk;
       const long long off = (long long)(ok ? key : 0) * row_stride + col;
-      const int dst = (stage * C::BK + r) * C::PITCH + col;
-      cp_async_16(smem_u32(Ks + dst), kb + off, ok);
-      cp_async_16(smem_u32(Vs + dst), vb + off, ok);
+      cp_async_16(smem_u32(dst + (stage * C::BK + r) * C::PITCH + col), src + off, ok);
     }
-    cp_async_commit();
   };
 
-  float o[NO][4];
-#pragma unroll
-  for (int t = 0; t < NO; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  const int nk = (p.Lk + C::BK - 1) / C::BK;
-  load_tile(0, 0);
-  for (int j = 0; j < nk; ++j) {
-    if (j + 1 < nk) {
-      load_tile((j + 1) & 1, j + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Kt = Ks + (j & 1) * C::BK * C::PITCH;
-    const __nv_bfloat16* Vt = Vs + (j & 1) * C::BK * C::PITCH;
-
-    // S = q' k^T over this warp's D slice.
-    float s[NS][4];
+  // S = q' k^T of key tile j (its K rows at Kt) over the whole head dim.
+  auto scores = [&](float (&s)[NS][4], const __nv_bfloat16* Kt, int j) {
 #pragma unroll
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
@@ -321,12 +334,31 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
         for (int e = 0; e < 4; ++e)
           if (j * C::BK + n * 8 + t4 * 2 + (e & 1) >= p.Lk) s[n][e] = kNegInf;
     }
+  };
 
-    if constexpr (kNoShift) {
+  float o[NO][4];
+#pragma unroll
+  for (int t = 0; t < NO; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  // P in place of S for one tile, and the row sums (and, online, the
+  // running max and the rescale of l and acc).
+  auto softmax = [&](float (&s)[NS][4]) {
+    if constexpr (kMode == kNoShift) {
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = exp2f(s[n][e]);
+        l0 += s[n][0] + s[n][1];
+        l1 += s[n][2] + s[n][3];
+      }
+    } else if constexpr (kRowBound) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        s[n][0] = exp2f(s[n][0] - mb0);
+        s[n][1] = exp2f(s[n][1] - mb0);
+        s[n][2] = exp2f(s[n][2] - mb1);
+        s[n][3] = exp2f(s[n][3] - mb1);
         l0 += s[n][0] + s[n][1];
         l1 += s[n][2] + s[n][3];
       }
@@ -363,9 +395,11 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
         l1 += s[n][2] + s[n][3];
       }
     }
+  };
 
-    // acc += bf16(P) V over this warp's D slice; the S accumulator layout of
-    // two adjacent n-tiles is exactly the A-operand layout of one k-step.
+  // acc += bf16(P) V over this warp's D slice; the S accumulator layout of
+  // two adjacent n-tiles is exactly the A-operand layout of one k-step.
+  auto accumulate = [&](const float (&s)[NS][4], const __nv_bfloat16* Vt) {
     const int vkey = (lane & 7) + ((lane >> 3) & 1) * 8;
     const int vcol = wd * C::DS + (lane >> 4) * 8;
 #pragma unroll
@@ -383,14 +417,88 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
         mma_bf16(o[t + 1], a, b2, b3);
       }
     }
+  };
+
+  const int nk = (p.Lk + C::BK - 1) / C::BK;
+  auto kstage = [&](int j) { return Ks + (j & 1) * C::BK * C::PITCH; };
+  auto vstage = [&](int j) { return Vs + (j & 1) * C::BK * C::PITCH; };
+  if constexpr (kMode != kBoundedPipe) {
+    // Tile j+1's K and V land while tile j is consumed.
+    load_rows(Ks, kb, 0, 0);
+    load_rows(Vs, vb, 0, 0);
+    cp_async_commit();
+    for (int j = 0; j < nk; ++j) {
+      if (j + 1 < nk) {
+        load_rows(Ks, kb, (j + 1) & 1, j + 1);
+        load_rows(Vs, vb, (j + 1) & 1, j + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      float s[NS][4];
+      scores(s, kstage(j), j);
+      softmax(s);
+      accumulate(s, vstage(j));
+      __syncthreads();
+    }
+  } else {
+    // The TPU kernel carries the score tile across grid steps so that tile
+    // j's QK^T (MXU) overlaps tile j-1's exp2 (VPU).  Here S of tile j+1 is
+    // formed in registers before tile j's exp2 and PV, so its mma.sync work
+    // is in flight while the SFUs take the exp2.  K runs one tile ahead of
+    // V: iteration j reads K[j+1] and V[j], and loads K[j+2] and V[j+1]
+    // into the stages that K[j] and V[j-1] left.  Same operations in the
+    // same order per tile as kBounded, so the results are identical.
+    float s[NS][4];
+    load_rows(Ks, kb, 0, 0);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
+    scores(s, kstage(0), 0);
+    load_rows(Vs, vb, 0, 0);
+    if (nk > 1) load_rows(Ks, kb, 1, 1);
+    cp_async_commit();
+    for (int j = 0; j < nk; ++j) {
+      cp_async_wait<0>();
+      __syncthreads();
+      if (j + 2 < nk) load_rows(Ks, kb, j & 1, j + 2);
+      if (j + 1 < nk) load_rows(Vs, vb, (j + 1) & 1, j + 1);
+      cp_async_commit();
+      float sn[NS][4];
+      if (j + 1 < nk) scores(sn, kstage(j + 1), j + 1);
+      softmax(s);
+      accumulate(s, vstage(j));
+      if (j + 1 < nk) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = sn[n][e];
+      }
+    }
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  if constexpr (kNoShift) {
+  if constexpr (kMode == kPartial) {
+    // JAX's partial stats: the running max (log2 domain) and the unclamped
+    // normalizer, one value per query row; every warp of a row group and
+    // every lane of a quad holds the same pair.
+    if (wd == 0 && t4 == 0) {
+      if (ok0) {
+        p.m_out[bh_rows + r0] = m0;
+        p.l_out[bh_rows + r0] = l0;
+      }
+      if (ok1) {
+        p.m_out[bh_rows + r1] = m1;
+        p.l_out[bh_rows + r1] = l1;
+      }
+    }
+  }
+  if constexpr (!kRunningMax) {
     l0 = fmaxf(l0, 1e-37f);
     l1 = fmaxf(l1, 1e-37f);
   }
@@ -437,20 +545,51 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(AttnArgs p) {
   }
   __syncthreads();
   if (noshift)
-    attend<D, true>(p, smem);
+    attend<D, kNoShift>(p, smem);
   else
-    attend<D, false>(p, smem);
+    attend<D, kOnline>(p, smem);
 }
 
-template <int D> int launch_attention(const AttnArgs& a, cudaStream_t stream) {
+// Kernel 3: the online softmax over this call's keys, with the per-row m and l
+// a cross-shard merge needs.  No headroom launch, no branch tally.
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_partial_kernel(AttnArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  attend<D, kPartial>(p, smem);
+}
+
+// Kernels 7 (kPipe false) and 6 (kPipe true): the bounded softmax, shifted by
+// the per-row bound the caller computed.  No headroom launch, no branch tally.
+template <int D, bool kPipe>
+__global__ void __launch_bounds__(kThreads) flash_bounded_kernel(AttnArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  attend<D, kPipe ? kBoundedPipe : kBounded>(p, smem);
+}
+
+template <int D, typename Kernel>
+int launch(Kernel kernel, const AttnArgs& a, cudaStream_t stream) {
   using C = Cfg<D>;
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(C::smem_bytes));
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Lq + C::BQ - 1) / C::BQ, a.H, a.B);
-  flash_attention_kernel<D><<<grid, kThreads, C::smem_bytes, stream>>>(a);
+  kernel<<<grid, kThreads, C::smem_bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+AttnArgs attn_args(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk,
+                   int H, float q_scale) {
+  AttnArgs a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.B = B;
+  a.Lq = Lq;
+  a.Lk = Lk;
+  a.H = H;
+  a.q_scale = q_scale;
+  return a;
 }
 
 }  // namespace
@@ -488,16 +627,54 @@ int drt_flash_headroom(const void* q, const void* k, const void* v, void* stats,
 int drt_flash_attention(const void* q, const void* k, const void* v, void* o, const void* stats,
                         void* tally, int B, int Lq, int Lk, int H, int D, float q_scale,
                         float log2_lk_pad, int bounded, void* stream) {
-  const AttnArgs a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                   static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-                   static_cast<const float*>(stats), static_cast<int*>(tally),
-                   B, Lq, Lk, H, q_scale, log2_lk_pad, bounded};
+  AttnArgs a = attn_args(q, k, v, o, B, Lq, Lk, H, q_scale);
+  a.stats = static_cast<const float*>(stats);
+  a.tally = static_cast<int*>(tally);
+  a.log2_lk_pad = log2_lk_pad;
+  a.bounded = bounded;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_attention<64>(a, st);
-    case 128: return launch_attention<128>(a, st);
-    case 256: return launch_attention<256>(a, st);
-    case 512: return launch_attention<512>(a, st);
+    case 64: return launch<64>(flash_attention_kernel<64>, a, st);
+    case 128: return launch<128>(flash_attention_kernel<128>, a, st);
+    case 256: return launch<256>(flash_attention_kernel<256>, a, st);
+    case 512: return launch<512>(flash_attention_kernel<512>, a, st);
+    default: return kUnsupportedHeadDim;
+  }
+}
+
+// m, l: fp32 (B, H, Lq), written for every query row.
+int drt_flash_attention_partial(const void* q, const void* k, const void* v, void* o, void* m,
+                                void* l, int B, int Lq, int Lk, int H, int D, float q_scale,
+                                void* stream) {
+  AttnArgs a = attn_args(q, k, v, o, B, Lq, Lk, H, q_scale);
+  a.m_out = static_cast<float*>(m);
+  a.l_out = static_cast<float*>(l);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch<64>(flash_partial_kernel<64>, a, st);
+    case 128: return launch<128>(flash_partial_kernel<128>, a, st);
+    case 256: return launch<256>(flash_partial_kernel<256>, a, st);
+    case 512: return launch<512>(flash_partial_kernel<512>, a, st);
+    default: return kUnsupportedHeadDim;
+  }
+}
+
+// mb: fp32 (B, H, Lq), the per-row bound; pipelined selects kernel 6.
+int drt_flash_attention_bounded(const void* q, const void* k, const void* v, void* o,
+                                const void* mb, int B, int Lq, int Lk, int H, int D,
+                                float q_scale, int pipelined, void* stream) {
+  AttnArgs a = attn_args(q, k, v, o, B, Lq, Lk, H, q_scale);
+  a.mb = static_cast<const float*>(mb);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return pipelined ? launch<64>(flash_bounded_kernel<64, true>, a, st)
+                              : launch<64>(flash_bounded_kernel<64, false>, a, st);
+    case 128: return pipelined ? launch<128>(flash_bounded_kernel<128, true>, a, st)
+                               : launch<128>(flash_bounded_kernel<128, false>, a, st);
+    case 256: return pipelined ? launch<256>(flash_bounded_kernel<256, true>, a, st)
+                               : launch<256>(flash_bounded_kernel<256, false>, a, st);
+    case 512: return pipelined ? launch<512>(flash_bounded_kernel<512, true>, a, st)
+                               : launch<512>(flash_bounded_kernel<512, false>, a, st);
     default: return kUnsupportedHeadDim;
   }
 }

@@ -20,12 +20,17 @@ block's dict may hold int8 leaves (weight-only or W8A8, per channel or per
 group); a '_mixN' list mixes bf16 and quantized blocks.  `capture` is the
 calibration hook (models/calibrate.py): it sees the input of every
 quantization site (models/quant.LEAF_SITE) as the block runs.
+
+Under a (data, seq) mesh (parallel/sharding.py) `dit_forward` runs on this
+rank's batch rows and keeps its L/seq token slice from the patch embedding
+to the final layer; only self-attention communicates (all-gather KV or ring
+attention over seq), plus one all-gather over seq before unpatchify.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +46,9 @@ from .quant import dense_maybe_quantized as _dense
 Params = Dict[str, Any]
 # capture(site, tensor): sees each quantization site's input (LEAF_SITE names).
 Capture = Optional[Callable[[str, torch.Tensor], None]]
+# An ops.attention backend name, or a callable (q, k, v) -> o such as the
+# sequence-parallel attention of parallel/flash_sp.make_sp_attention.
+AttnBackend = Union[str, Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]]
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +138,7 @@ def _adaln(x, emb, lora, bp):
 
 
 def _self_attention_block(x, emb, lora, bp, cos, sin, num_heads: int,
-                          attn_backend: str, capture: Capture = None) -> torch.Tensor:
+                          attn_backend: AttnBackend, capture: Capture = None) -> torch.Tensor:
     (_, _, gate), xm = _adaln(x, emb, lora, bp)
     b, l, d = xm.shape
     dh = d // num_heads
@@ -142,7 +150,11 @@ def _self_attention_block(x, emb, lora, bp, cos, sin, num_heads: int,
     # Per-head q/k RMSNorm, identity on v (the "RRI" scheme).
     q = apply_rope(rms_norm(q, bp["q_norm"]), cos, sin)
     k = apply_rope(rms_norm(k, bp["k_norm"]), cos, sin)
-    o = attention(q, k, v, backend=attn_backend).reshape(b, l, d)
+    if callable(attn_backend):  # sequence-parallel attention over the mesh
+        o = attn_backend(q, k, v)
+    else:
+        o = attention(q, k, v, backend=attn_backend)
+    o = o.reshape(b, l, d)
     if capture is not None:
         capture("fa.wo", o)
     return x + gate[:, None, :] * _dense(o, bp["wo"])
@@ -173,7 +185,7 @@ def _mlp_block(x, emb, lora, bp, capture: Capture = None) -> torch.Tensor:
 
 
 def block_apply(bp: Params, x, emb, lora, context, cos, sin, cfg: DiTConfig,
-                attn_backend: str = "auto", capture: Capture = None) -> torch.Tensor:
+                attn_backend: AttnBackend = "auto", capture: Capture = None) -> torch.Tensor:
     """One FA -> CA -> MLP block."""
     x = _self_attention_block(x, emb, lora, bp["fa"], cos, sin, cfg.num_heads,
                               attn_backend, capture)
@@ -193,7 +205,8 @@ def dit_forward(
     context_index: Optional[torch.Tensor],
     cfg: DiTConfig,
     *,
-    attn_backend: str = "auto",
+    attn_backend: AttnBackend = "auto",
+    mesh=None,
     capture: Optional[Callable[[int, str, torch.Tensor], None]] = None,
 ) -> torch.Tensor:
     """One denoiser evaluation F(x; sigma, condition).
@@ -201,8 +214,12 @@ def dit_forward(
     x: (B, T, H, W, C_in) channels-last, already c_in-scaled; sigma: (B,)
     raw noise levels; latent_condition: (B, T, H, W, C_cond);
     context_index: (B,) G-buffer selector (used when the config has a
-    context embedding); capture(block, site, tensor): the calibration hook.
-    Returns (B, T, H, W, C_out) in x's dtype."""
+    context embedding); attn_backend: an ops.attention backend, a callable
+    (q, k, v) -> o, or, with a mesh, 'flash_sp' / 'ring'; mesh: a
+    parallel.sharding.Mesh, with x and the conditions holding this rank's
+    batch rows (see _mesh_attention for the backend rules); capture(block,
+    site, tensor): the calibration hook.  Returns (B, T, H, W, C_out) in
+    x's dtype, all tokens on every rank."""
     b, t, h, w, _ = x.shape
     d = cfg.model_channels
     dtype = x.dtype
@@ -237,6 +254,12 @@ def dit_forward(
         device=x.device,
     )
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if mesh is not None:  # this rank's tokens, and their rope rows
+        from ..parallel.sharding import gather_tokens, token_slice
+
+        attn_backend = _mesh_attention(mesh, attn_backend, x.is_cuda)
+        tokens = token_slice(tokens, mesh)
+        cos, sin = token_slice(cos, mesh, dim=0), token_slice(sin, mesh, dim=0)
 
     for i, bp in enumerate(params["blocks"]):
         hook = None if capture is None else functools.partial(capture, i)
@@ -249,5 +272,28 @@ def dit_forward(
                            lora[:, : 2 * d])
     shift, scale = [c.to(dtype) for c in mod.chunk(2, dim=-1)]
     out = F.linear(modulate(layer_norm_no_affine(tokens), shift, scale), fin["linear"])
+    if mesh is not None:
+        out = gather_tokens(out, mesh)
     return unpatchify(out, tp, hp, wp, cfg.patch_spatial, cfg.patch_temporal,
                       cfg.out_channels)
+
+
+def _mesh_attention(mesh, backend: AttnBackend, on_cuda: bool) -> AttnBackend:
+    """The self-attention under a mesh (the JAX package's rules, dit.py:
+    398-419): 'flash_sp' and 'ring' take parallel/flash_sp.make_sp_attention
+    with impl 'flash' (all-gather KV, online-softmax flash kernel) or 'ring';
+    'auto' takes 'flash' for CUDA tensors and the plain attention otherwise
+    (the token count always divides: token_slice refuses one that does not);
+    a callable is used as it is; with seq > 1 any other backend name runs on
+    the all-gathered KV."""
+    from ..parallel.flash_sp import make_gathered_attention, make_sp_attention
+
+    if callable(backend):
+        return backend
+    if backend in ("flash_sp", "ring"):
+        return make_sp_attention(mesh, impl="ring" if backend == "ring" else "flash")
+    if backend == "auto":
+        if on_cuda:
+            return make_sp_attention(mesh, impl="flash")
+        backend = "xla"
+    return make_gathered_attention(mesh, backend) if mesh.seq > 1 else backend

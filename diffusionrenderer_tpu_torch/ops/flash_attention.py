@@ -16,7 +16,21 @@ this module holds
   the same headroom rule, so the CPU tests exercise the branch logic;
 * `flash_attention_int8_plain` - the plain version of the int8 kernel
   (SageAttention-style int8 QK^T, optionally int8 PV), walking the keys in
-  the same tiles, since P is rounded relative to the running max.
+  the same tiles, since P is rounded relative to the running max;
+* `flash_attention_partial` - the online softmax that also returns the
+  per-row running max m (log2 domain) and normalizer l, the inner block of
+  ring attention (`flash_attention_partial_kernel`, plain version
+  `flash_attention_partial_plain`);
+* `flash_attention_bounded_shift` and `flash_attention(bounded=True,
+  pipelined=True)` - the bounded softmax p = exp2(s - mb_i) with the row
+  bound of `row_bound` (`flash_attention_bounded_kernel`, one kernel with
+  and one without the carried score tile; plain version
+  `flash_attention_bounded_plain`).  As in JAX, no dispatcher route reaches
+  the first: it is called by name.
+
+`LAUNCHES` counts the launches of kernels 1, 2 (one launch, with its
+headroom launch) and 5; `VARIANT_LAUNCHES` those of kernels 3, 6 and 7,
+which take no headroom launch and no branch tally.
 
 The branch rule is that of the JAX package (_bounded_cond_call): with q
 pre-scaled by softmax_scale*log2(e) and the row bound m_i = ||q_i|| * max_j
@@ -51,14 +65,18 @@ _JAX_DEFAULT_BLOCK_K = 2816  # diffusionrenderer_tpu/ops/flash_attention.py DEFA
 # Launches of each kernel since the last reset_counts(), counted by its wrapper.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_headroom": 0,
                             "flash_attention_int8": 0}
+VARIANT_LAUNCHES: Dict[str, int] = {"flash_attention_partial": 0,
+                                    "flash_attention_bounded_pipe": 0,
+                                    "flash_attention_bounded": 0}
 # Per device, int32[2]: how many attention launches took the no-shift and the
 # online branch, counted on the device by block (0, 0, 0) of each launch.
 _tallies: Dict[torch.device, torch.Tensor] = {}
 
 
 def reset_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
     for t in _tallies.values():
         t.zero_()
 
@@ -68,7 +86,10 @@ def _tally(device) -> torch.Tensor:
     if dev.index is None:
         dev = torch.device(dev.type, torch.cuda.current_device())
     if dev not in _tallies:
-        _tallies[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+        # A normal tensor even when the first launch runs under
+        # torch.inference_mode (generate): reset_counts zeroes it outside.
+        with torch.inference_mode(False):
+            _tallies[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
     return _tallies[dev]
 
 
@@ -134,6 +155,21 @@ def use_noshift(stats: torch.Tensor, n_bh: int, lk: int, d: int) -> torch.Tensor
     return headroom < HEADROOM_LIMIT
 
 
+def _scores(q, k) -> torch.Tensor:
+    """fp32 (B, H, Lq, Lk) log2-domain scores q' k^T (q pre-scaled, rounded)."""
+    return torch.einsum("bqhd,bkhd->bhqk", q_prescale(q).float(), k.float())
+
+
+def _softmax_pv(s, v, *, clamp: bool, dtype):
+    """P = exp2(s) of already shifted scores, then (P in v's dtype) V / l:
+    (out (B, Lq, H, D) in dtype, l (B, H, Lq)); clamp: l at 1e-37."""
+    p = torch.exp2(s)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    denom = l.clamp_min(1e-37) if clamp else l
+    return (acc / denom.permute(0, 2, 1)[..., None]).to(dtype), l
+
+
 def flash_attention_plain(q, k, v, *, bounded: bool = True) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v with the kernel's rounding points.
 
@@ -141,15 +177,39 @@ def flash_attention_plain(q, k, v, *, bounded: bool = True) -> torch.Tensor:
     b, _, h, d = q.shape
     noshift = bounded and bool(
         use_noshift(headroom_stats_plain(q, k, v), b * h, k.shape[1], d))
-    s = torch.einsum("bqhd,bkhd->bhqk", q_prescale(q).float(), k.float())
+    s = _scores(q, k)
     if not noshift:
         s = s - s.amax(dim=-1, keepdim=True)
-    p = torch.exp2(s)
-    l = p.sum(dim=-1).permute(0, 2, 1).unsqueeze(-1)  # (B, Lq, H, 1)
-    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    if noshift:
-        l = l.clamp_min(1e-37)
-    return (acc / l).to(q.dtype)
+    return _softmax_pv(s, v, clamp=noshift, dtype=q.dtype)[0]
+
+
+def flash_attention_partial_plain(q, k, v):
+    """The partial-stats kernel's function: (out, m, l) with out (B, Lq, H, D)
+    normalized over these keys in q's dtype, and fp32 (B, H, Lq) m = max_j s_ij
+    (log2 domain: s = q' k^T with q' = q * scale * log2 e) and l = sum_j
+    exp2(s_ij - m_i), not clamped."""
+    s = _scores(q, k)
+    m = s.amax(dim=-1)
+    out, l = _softmax_pv(s - m[..., None], v, clamp=False, dtype=q.dtype)
+    return out, m, l
+
+
+def row_bound(q, k) -> torch.Tensor:
+    """The bounded kernels' per-row shift, as _flash_call computes it: fp32
+    (B, H, Lq) ||q'_i|| * max_j ||k_j|| per (b, h), with q' the pre-scaled q
+    rounded to q's dtype (an upper bound of every score of row i)."""
+    qn = q_prescale(q).float().square().sum(dim=-1).sqrt()  # (B, Lq, H)
+    kn = k.float().square().sum(dim=-1).sqrt().amax(dim=1, keepdim=True)  # (B, 1, H)
+    return (qn * kn).permute(0, 2, 1).contiguous()
+
+
+def flash_attention_bounded_plain(q, k, v, mb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The bounded kernels' function: p = exp2(s - mb_i) with no running max
+    and l clamped at 1e-37, so rows whose bound overshoots their true max by
+    more than fp32's range come out as zeros, as in JAX.  mb defaults to
+    row_bound(q, k)."""
+    mb = row_bound(q, k) if mb is None else mb
+    return _softmax_pv(_scores(q, k) - mb[..., None], v, clamp=True, dtype=q.dtype)[0]
 
 
 def _quant_rows_int8(x: torch.Tensor):
@@ -245,6 +305,10 @@ def _lib() -> ctypes.CDLL:
         lib.drt_flash_attention.argtypes = (
             [ptr] * 6 + [i32] * 5 + [f32, f32, i32, ptr])
         lib.drt_flash_attention.restype = i32
+        lib.drt_flash_attention_partial.argtypes = [ptr] * 6 + [i32] * 5 + [f32, ptr]
+        lib.drt_flash_attention_partial.restype = i32
+        lib.drt_flash_attention_bounded.argtypes = [ptr] * 5 + [i32] * 5 + [f32, i32, ptr]
+        lib.drt_flash_attention_bounded.restype = i32
         lib.drt_error_string.argtypes = [i32]
         lib.drt_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -341,6 +405,43 @@ def flash_attention_kernel(q, k, v, stats: Optional[torch.Tensor]) -> torch.Tens
     return out
 
 
+def flash_attention_partial_kernel(q, k, v):
+    """Launch kernel 3: (out, m, l) as flash_attention_partial_plain."""
+    _check_kernel_inputs(q, k, v)
+    b, lq, h, d = q.shape
+    out = torch.empty_like(q)
+    m = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    with torch.cuda.device(q.device):
+        err = _lib().drt_flash_attention_partial(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m.data_ptr(),
+            l.data_ptr(), b, lq, k.shape[1], h, d, float(_q_scale(d, q.dtype)),
+            _stream(q.device))
+    _raise_on(err, "flash_attention_partial")
+    VARIANT_LAUNCHES["flash_attention_partial"] += 1
+    return out, m, l
+
+
+def flash_attention_bounded_kernel(q, k, v, mb: torch.Tensor, *, pipelined: bool) -> torch.Tensor:
+    """Launch kernel 6 (pipelined) or 7 on the row bound mb (fp32 (B, H, Lq),
+    from row_bound)."""
+    _check_kernel_inputs(q, k, v)
+    b, lq, h, d = q.shape
+    if (mb.device != q.device or mb.dtype != torch.float32 or tuple(mb.shape) != (b, h, lq)
+            or not mb.is_contiguous()):
+        raise ValueError(f"mb must be a contiguous fp32 ({b}, {h}, {lq}) tensor on {q.device}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _lib().drt_flash_attention_bounded(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), mb.data_ptr(),
+            b, lq, k.shape[1], h, d, float(_q_scale(d, q.dtype)), int(pipelined),
+            _stream(q.device))
+    _raise_on(err, "flash_attention_bounded")
+    VARIANT_LAUNCHES["flash_attention_bounded_pipe" if pipelined
+                     else "flash_attention_bounded"] += 1
+    return out
+
+
 class Int8Operands(NamedTuple):
     """What the int8 kernel reads: int8 q (pre-scaled) and k (B, L, H, D)
     with fp32 row scales (B, H, L); V as bf16 (B, Lk, H, D), or with pv_int8
@@ -401,18 +502,21 @@ def flash_attention(q, k, v, block_q: Optional[int] = None, block_k: Optional[in
     not bounded, and bounded with pv_int8 is refused.  block_k sets the
     int8 plain version's key tile (the int8 result depends on it); the CUDA
     kernels use their own tiles, and a CUDA call refuses another block_k in
-    int8 mode.  block_q never changes the result (rows are independent)."""
-    if bounded and pipelined:
-        raise NotImplementedError(
-            "flash_attention(bounded=True, pipelined=True) (_flash_kernel_bounded_pipe) is "
-            "not ported yet: ROADMAP.md queue 2, item 6")
+    int8 mode.  block_q never changes the result (rows are independent).
+    bounded with pipelined is the bounded softmax shifted by the per-row
+    bound (row_bound), with the score tile carried one key tile ahead;
+    pipelined alone is ignored, as in JAX."""
     if bounded and pv_int8:
         raise ValueError("bounded mode does not compose with int8 (int8 P needs a tight max)")
     int8 = (qk_int8 or pv_int8) and not bounded
     if q.device.type == "cpu":
         if int8:
             return flash_attention_int8_plain(q, k, v, pv_int8=pv_int8, block_k=block_k)
+        if bounded and pipelined:
+            return flash_attention_bounded_plain(q, k, v)
         return flash_attention_plain(q, k, v, bounded=bounded)
+    if bounded and pipelined:
+        return flash_attention_bounded_kernel(q, k, v, row_bound(q, k), pipelined=True)
     if int8:
         if block_k not in (None, INT8_BLOCK_K):
             raise ValueError(f"the int8 kernel walks keys in tiles of {INT8_BLOCK_K}, "
@@ -420,3 +524,27 @@ def flash_attention(q, k, v, block_q: Optional[int] = None, block_k: Optional[in
         return flash_attention_int8_launch(int8_operands(q, k, v, pv_int8=pv_int8))
     stats = flash_headroom(q, k, v) if bounded else None
     return flash_attention_kernel(q, k, v, stats)
+
+
+def flash_attention_bounded_shift(q, k, v) -> torch.Tensor:
+    """The bounded softmax without the carried score tile (JAX's
+    _flash_kernel_bounded, which no JAX code path calls): the same function
+    as flash_attention(bounded=True, pipelined=True).  Plain version for CPU
+    tensors, kernel 7 for CUDA tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_bounded_plain(q, k, v)
+    return flash_attention_bounded_kernel(q, k, v, row_bound(q, k), pipelined=False)
+
+
+def flash_attention_partial(q, k, v, block_q: Optional[int] = None,
+                            block_k: Optional[int] = None):
+    """Flash attention returning per-shard softmax statistics (JAX's
+    flash_attention_partial): (out, m, l) with out (B, Lq, H, D) normalized
+    over these keys, and fp32 (B, H, Lq) m, the running max in the log2
+    domain (q pre-scaled by softmax_scale * log2 e), and l, the normalizer.
+    Shards merge exactly with o = out * l and an exp2 online-softmax combine
+    (parallel/ring_attention.py).  Plain version for CPU tensors, kernel 3
+    for CUDA tensors; block_q and block_k leave the result unchanged."""
+    if q.device.type == "cpu":
+        return flash_attention_partial_plain(q, k, v)
+    return flash_attention_partial_kernel(q, k, v)

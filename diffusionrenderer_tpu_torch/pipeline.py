@@ -16,6 +16,11 @@ Video tensors are channels-last (B, T, H, W, C) at the public functions;
 pixel conditions travel channels-first into the VAE.  The random initial
 state comes from seeded torch.Generators; `generate(x_init=...)` takes an
 explicit one instead (the tests inject the same noise into both packages).
+
+`DiffusionRendererPipeline.shard(mesh)` runs generations over a (data, seq)
+mesh of torch.distributed ranks (parallel/sharding.py): batch rows split
+over data when they divide it, DiT tokens over seq, and every rank returns
+the whole result.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from .config import RendererConfig, get_config_by_model_type, validate_config
 from .models.dit import dit_forward
 from .models.vae import vae_decode, vae_encode
+from .parallel.sharding import batch_rows_split, batch_slice, gather_batch
 from .sampling.edm import edm_sigmas, sample_edm
 from .utils.device import synchronize
 from .utils.hostops import to_float32
@@ -103,10 +109,10 @@ def assemble_conditions(latents: Sequence[torch.Tensor], *, cfg: RendererConfig,
 
 def make_denoise_fn(dit_params, latent_condition: torch.Tensor, ctx: torch.Tensor,
                     guidance: float, *, cfg: RendererConfig, use_cfg: bool,
-                    attn_backend: str = "auto"):
+                    attn_backend: str = "auto", mesh=None):
     """denoise_fn(x_scaled, sigma) -> F(x).  Under classifier-free guidance
     the (cond, uncond) pair rides the batch axis of one forward, combined
-    as cond + g * (cond - uncond) in fp32."""
+    as cond + g * (cond - uncond) in fp32.  mesh: dit_forward's."""
     dtype = compute_dtype_of(cfg)
     b = latent_condition.shape[0]
     if use_cfg:
@@ -117,7 +123,7 @@ def make_denoise_fn(dit_params, latent_condition: torch.Tensor, ctx: torch.Tenso
         def denoise_fn(x_scaled, sigma):
             out2 = dit_forward(dit_params, torch.cat([x_scaled, x_scaled], dim=0),
                                sigma.to(dtype).expand(2 * b), lc2, ctx2, cfg.net,
-                               attn_backend=attn_backend)
+                               attn_backend=attn_backend, mesh=mesh)
             out_c, out_u = out2[:b].float(), out2[b:].float()
             return (out_c + g * (out_c - out_u)).to(dtype)
 
@@ -125,20 +131,21 @@ def make_denoise_fn(dit_params, latent_condition: torch.Tensor, ctx: torch.Tenso
 
     def denoise_fn(x_scaled, sigma):
         return dit_forward(dit_params, x_scaled, sigma.to(dtype).expand(b),
-                           latent_condition, ctx, cfg.net, attn_backend=attn_backend)
+                           latent_condition, ctx, cfg.net, attn_backend=attn_backend, mesh=mesh)
 
     return denoise_fn
 
 
 def sample(dit_params, latent_condition: torch.Tensor, context_index: torch.Tensor,
            x: torch.Tensor, guidance: float, sigmas: torch.Tensor, *,
-           cfg: RendererConfig, use_cfg: bool, attn_backend: str = "auto") -> torch.Tensor:
+           cfg: RendererConfig, use_cfg: bool, attn_backend: str = "auto",
+           mesh=None) -> torch.Tensor:
     """Run the Euler trajectory of x over the sigma table `sigmas`."""
     dtype = compute_dtype_of(cfg)
     latent_condition = latent_condition.to(dtype)
     ctx = context_index.reshape(latent_condition.shape[0]).long()
     denoise_fn = make_denoise_fn(dit_params, latent_condition, ctx, guidance, cfg=cfg,
-                                 use_cfg=use_cfg, attn_backend=attn_backend)
+                                 use_cfg=use_cfg, attn_backend=attn_backend, mesh=mesh)
     return sample_edm(denoise_fn, x.to(dtype), sigmas, cfg.scheduler.sigma_data)
 
 
@@ -183,7 +190,9 @@ class DiffusionRendererPipeline:
     Public surface of the JAX pipeline: set_model_type, generate, and the
     runtime guidance / num_steps / seed.  `timings` holds the wall seconds
     of the last generation's phases (encode, denoise, decode), each closed
-    by a device synchronize."""
+    by a device synchronize.  After shard(mesh), `mesh` is this rank's
+    parallel.sharding.Mesh and `sp_attn` the DiT's attention backend under
+    it."""
 
     def __init__(
         self,
@@ -212,6 +221,19 @@ class DiffusionRendererPipeline:
         self.net_config = net_config
         self.vae_config = vae_config
         self.timings: Dict[str, float] = {}
+        self.mesh = None
+        self.sp_attn = "auto"
+
+    def shard(self, mesh, sp_attn: Optional[str] = None) -> "DiffusionRendererPipeline":
+        """Run generations over a (data, seq) mesh (parallel.sharding.make_mesh;
+        every rank builds the same pipeline and calls generate alike).  The
+        parameters stay replicated (the mesh has tensor = 1).  sp_attn
+        overrides the DiT's attention under the mesh: 'auto', 'flash_sp',
+        'ring', or an ops.attention backend run on the all-gathered KV."""
+        if sp_attn is not None:
+            self.sp_attn = sp_attn
+        self.mesh = mesh
+        return self
 
     def set_model_type(self, model_type: str) -> None:
         """Inverse and forward use different checkpoints; switching only
@@ -279,7 +301,13 @@ class DiffusionRendererPipeline:
         latent n-fold (the batched multi-pass inverse job); noise_tile=n
         replicates one noise draw over n row groups; a sequence of seeds
         gives each row its own.  x_init, when given, is the initial state
-        (B, T', H', W', C_lat), already scaled by sigma_max."""
+        (B, T', H', W', C_lat), already scaled by sigma_max.
+
+        On a sharded pipeline the B rows split over the mesh's data axis
+        when they divide it (before the encode when batch_tile is 1, after
+        the tiling otherwise) and are replicated when they do not; the noise
+        is drawn for all rows on every rank and then sliced, so the result
+        equals an unsharded run's; every rank returns all B rows."""
         if self.model_type is None:
             raise RuntimeError("model_type not set; call set_model_type first")
         shape_key = next((k for k in SHAPE_INFERENCE_KEYS if k in data_batch), None)
@@ -310,20 +338,28 @@ class DiffusionRendererPipeline:
             normal_mask = torch.as_tensor(
                 np.asarray(normalize_normal, np.float32)).reshape(b).to(self.device)
 
+        mesh = self.mesh
+        split = mesh is not None and batch_rows_split(b, mesh)
+        pre_split = split and batch_tile == 1  # slice the pixel rows before the encode
+        rows = (lambda x: batch_slice(x, mesh)) if split else (lambda x: x)  # noqa: E731
+
         with self._phase("encode"):
             latents = []
             for i, key in enumerate(cfg.condition_keys):
                 if present[i]:
                     src = key if key in data_batch else "rgb"
+                    pixels = self._upload(data_batch[src])
                     latents.append(encode_condition(
-                        self.vae_params, self._upload(data_batch[src]), cfg=cfg))
+                        self.vae_params, rows(pixels) if pre_split else pixels, cfg=cfg))
             latent_condition = assemble_conditions(latents, cfg=cfg, present=present,
                                                    tile=batch_tile)
+            if split and not pre_split:
+                latent_condition = rows(latent_condition)
             del latents
         with self._phase("denoise"):
             sigmas = edm_sigmas(self.num_steps, cfg.scheduler.sigma_max,
                                 cfg.scheduler.sigma_min)
-            state_shape = (*latent_condition.shape[:4], cfg.vae.latent_channels)
+            state_shape = (b, *latent_condition.shape[1:4], cfg.vae.latent_channels)
             if x_init is not None:
                 if tuple(x_init.shape) != state_shape:
                     raise ValueError(f"x_init has shape {tuple(x_init.shape)}, "
@@ -332,9 +368,13 @@ class DiffusionRendererPipeline:
             else:
                 x = noise_init(seed, float(sigmas[0]), shape=state_shape,
                                noise_tile=noise_tile, dtype=dtype, device=self.device)
-            x = sample(self.dit_params, latent_condition, ctx, x, self.guidance, sigmas,
-                       cfg=cfg, use_cfg=self.guidance > 0)
+            x = sample(self.dit_params, latent_condition, rows(ctx), rows(x), self.guidance,
+                       sigmas, cfg=cfg, use_cfg=self.guidance > 0,
+                       attn_backend="auto" if mesh is None else self.sp_attn, mesh=mesh)
             del latent_condition
         with self._phase("decode"):
-            video_u8 = decode(self.vae_params, x, normal_mask, cfg=cfg).cpu().numpy()
+            video = decode(self.vae_params, x, rows(normal_mask), cfg=cfg)
+            if split:
+                video = gather_batch(video, mesh, b)
+            video_u8 = video.cpu().numpy()
         return video_u8

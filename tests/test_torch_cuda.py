@@ -10,7 +10,10 @@ the attention kernels compute in bf16 with fp32 softmax state and round
 where the plain version rounds, so outputs differ by about one bf16 ulp on
 a few elements: max |err| within 2e-2 of max |plain| (no floor) and a
 relative L2 error within 1e-2; the int8 attention kernel is held to its
-plain version at the kernel's own key tile.  The W8A8 matmul kernel is
+plain version at the kernel's own key tile; the partial-stats kernel's m and
+l and the bounded kernels' outputs to the same limits, and the pipelined
+bounded kernel bitwise to the unpipelined one (same operations in the same
+order per tile).  The W8A8 matmul kernel is
 bitwise equal to its plain version per channel (exact int32 core, the same
 fp32 epilogue); grouped, within one bf16 ulp of max |plain| and a relative
 L2 error of 1e-3."""
@@ -190,3 +193,52 @@ def test_w8a8_dit_forward_kernels_vs_plain(cuda):
     assert tqm.LAUNCHES["quant_matmul_w8a8"] == 6 * cfg.num_blocks
     assert tfa.LAUNCHES["flash_attention_int8"] == cfg.num_blocks
     assert torch.isfinite(out).all()
+
+
+def aligned_qkv(device, b, lq, lk, h, d, q_scale, seed=0):
+    """RMS-normed keys and queries that are q_scale times a key plus noise:
+    scores of q_scale * 0.13 * d log2 units, so at q_scale 10 and d = 128 the
+    unshifted exp2 overflows, while the row bound stays within a few units of
+    each row's true max and the bounded softmax stays exact."""
+    g = torch.Generator(device).manual_seed(seed)
+    k = torch.randn(b, lk, h, d, generator=g, device=device)
+    k = k * torch.rsqrt(k.square().mean(-1, keepdim=True))
+    idx = torch.randint(0, lk, (lq,), generator=g, device=device)
+    q = q_scale * (k[:, idx] + 0.05 * torch.randn(b, lq, h, d, generator=g, device=device))
+    v = torch.randn(b, lk, h, d, generator=g, device=device)
+    return q.bfloat16(), k.bfloat16(), v.bfloat16()
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", CASES)
+@pytest.mark.parametrize("q_scale", [1.0, 100.0])
+def test_partial_kernel_matches_plain(cuda, b, lq, lk, h, d, q_scale):
+    q, k, v = qkv(cuda, b, lq, lk, h, d, q_scale)
+    tfa.reset_counts()
+    out, m, l = tfa.flash_attention_partial(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.VARIANT_LAUNCHES["flash_attention_partial"] == 1
+    assert sum(tfa.LAUNCHES.values()) == 0
+    assert tfa.branch_counts(cuda) == {"noshift": 0, "online": 0}
+    want = tfa.flash_attention_partial_plain(q, k, v)
+    for got_x, want_x in zip((out, m, l), want):
+        assert_close(got_x, want_x)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", CASES)
+@pytest.mark.parametrize("aligned", [False, True], ids=["random", "aligned_x10"])
+def test_bounded_kernels_match_plain(cuda, b, lq, lk, h, d, aligned):
+    q, k, v = (aligned_qkv(cuda, b, lq, lk, h, d, 10.0) if aligned
+               else qkv(cuda, b, lq, lk, h, d))
+    tfa.reset_counts()
+    pipe = tfa.flash_attention(q, k, v, bounded=True, pipelined=True)
+    shift = tfa.flash_attention_bounded_shift(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.VARIANT_LAUNCHES == {"flash_attention_partial": 0,
+                                    "flash_attention_bounded_pipe": 1,
+                                    "flash_attention_bounded": 1}
+    assert sum(tfa.LAUNCHES.values()) == 0
+    assert tfa.branch_counts(cuda) == {"noshift": 0, "online": 0}
+    assert torch.equal(pipe, shift)
+    assert_close(shift, tfa.flash_attention_bounded_plain(q, k, v))
+    if aligned:  # the shift keeps the bounded softmax exact where exp2(s) overflows
+        assert_close(shift, tfa.flash_attention_plain(q, k, v, bounded=False))

@@ -112,8 +112,10 @@ def test_flag_precedence_and_refusals():
                                tfa.flash_attention_int8_plain(tq, tk, tv, pv_int8=True))
     with pytest.raises(ValueError, match="int8"):
         tfa.flash_attention(tq, tk, tv, pv_int8=True, bounded=True)
-    with pytest.raises(NotImplementedError, match="queue 2, item 6"):
-        tfa.flash_attention(tq, tk, tv, bounded=True, pipelined=True)
+    # bounded with pipelined is the bounded-shift softmax, and drops qk_int8 too.
+    torch.testing.assert_close(
+        tfa.flash_attention(tq, tk, tv, qk_int8=True, bounded=True, pipelined=True),
+        tfa.flash_attention_bounded_plain(tq, tk, tv))
     wide = torch.zeros(1, 64, 1, 256)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfa.flash_attention(wide, wide, wide, qk_int8=True)

@@ -1,0 +1,80 @@
+"""The port's partial-stats flash attention (the ring's inner block) against
+the JAX package's.
+
+On the CPU `flash_attention_partial` runs its plain version; its out, m and
+l are held against JAX's `flash_attention_partial` in Pallas interpret mode
+at D in {64, 128}, even and ragged key lengths, in fp32 at 2e-5 (relative
+for l and m, whose size grows with Lk and the logits): exact softmax
+statistics, summed in another order.  Merging the partial states of n key
+shards with the ring's `_merge` must give `attention_xla` of the whole key
+set, at the same tolerance.  tests/test_torch_cuda.py holds kernel 3 to this
+plain version on the card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffusionrenderer_tpu.ops import flash_attention as jfa
+from diffusionrenderer_tpu.ops.attention import attention_xla as j_attention_xla
+from diffusionrenderer_tpu_torch.ops import flash_attention as tfa
+from diffusionrenderer_tpu_torch.parallel.ring_attention import _merge, _partial_attn_flash
+
+CASES = [(1, 256, 256, 2, 128), (2, 200, 328, 1, 128), (1, 256, 300, 2, 64),
+         (2, 130, 97, 3, 64)]
+
+
+def make_qkv(b, lq, lk, h, d, seed=0, q_scale=1.0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, lq, h, d)).astype(np.float32) * q_scale
+    k = rng.standard_normal((b, lk, h, d)).astype(np.float32)
+    v = rng.standard_normal((b, lk, h, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", CASES)
+@pytest.mark.parametrize("q_scale", [1.0, 4.0])
+def test_partial_matches_jax(b, lq, lk, h, d, q_scale):
+    q, k, v = make_qkv(b, lq, lk, h, d, seed=lq + lk + d, q_scale=q_scale)
+    out, m, l = (x.numpy() for x in tfa.flash_attention_partial(
+        *(torch.from_numpy(x) for x in (q, k, v))))
+    j_out, j_m, j_l = (np.asarray(x) for x in jfa.flash_attention_partial(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
+    assert out.shape == (b, lq, h, d) and m.shape == l.shape == (b, h, lq)
+    assert m.dtype == l.dtype == np.float32
+    np.testing.assert_allclose(out, j_out, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(m, j_m, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(l, j_l, rtol=2e-5, atol=2e-5)
+
+
+def test_partial_stats_are_the_online_softmax_state():
+    """m is the row max of the log2-domain scores and l the sum of
+    exp2(s - m), not clamped: a row of one key has l == 1 exactly."""
+    q, k, v = (torch.from_numpy(x) for x in make_qkv(1, 40, 1, 2, 64, seed=3))
+    out, m, l = tfa.flash_attention_partial(q, k, v)
+    torch.testing.assert_close(l, torch.ones_like(l), rtol=0, atol=0)
+    s = torch.einsum("bqhd,bkhd->bhqk", tfa.q_prescale(q), k)[..., 0]
+    torch.testing.assert_close(m, s, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(out, v.expand(1, 40, 2, 64), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shards", [2, 3, 4])
+@pytest.mark.parametrize("d", [64, 128])
+def test_merge_of_key_shards_equals_exact_attention(shards, d):
+    q, k, v = make_qkv(2, 96, 250, 2, d, seed=shards + d, q_scale=3.0)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    bounds = np.linspace(0, 250, shards + 1).astype(int)  # ragged shards
+    state = None
+    for a, z in zip(bounds[:-1], bounds[1:]):
+        part = _partial_attn_flash(tq, tk[:, a:z], tv[:, a:z])
+        state = part if state is None else _merge(state, part)
+    _, l, o = state
+    got = (o / l.permute(0, 2, 1)[..., None]).numpy()
+    want = np.asarray(j_attention_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_partial_kernel_wrapper_refuses_cpu_tensors():
+    q, k, v = (torch.from_numpy(x) for x in make_qkv(1, 64, 64, 1, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_partial_kernel(q, k, v)
