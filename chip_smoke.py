@@ -9,12 +9,14 @@ Run from the root of a checkout, on a machine with a CUDA card:
 Phases (any failure raises and exits non-zero):
   1. device  - require CUDA; print the card's name and power limit; TF32 off.
   2. build   - build every hand-written CUDA kernel from csrc/ (sm_90a), one
-               nvcc per source, all started together; print ptxas's
+               nvcc per source, all started together, and beside them the
+               HDR codec (csrc/*.cc, host compiler, zlib); print ptxas's
                registers and spills.
   3. kernels - the bf16 attention kernels vs their plain PyTorch version:
-               the DiT's (5, 1024, 32, 128) with RMS-normed q/k, the VAE's
-               D=512 at its encode and decode shapes, a ragged length with
-               Lk != Lq, and inputs whose headroom forces the online branch.
+               the DiT's (5, 1024, 32, 128) with RMS-normed q/k, the forward
+               render's (1, 1024|2048, 32, 128), the VAE's D=512 at its encode
+               and decode shapes, a ragged length with Lk != Lq, and inputs
+               whose headroom forces the online branch.
   4. flagship attention (1, 28160, 32, 128): kernel time beside
                F.scaled_dot_product_attention (a yardstick the port never
                calls); output checked against the plain version on 2 heads.
@@ -62,7 +64,23 @@ Phases (any failure raises and exits non-zero):
                near the kernel path's forward.
   18. timings of kernels 3, 6 and 7 at the DiT and flagship shapes beside
                kernel 2 and their yardsticks.
-  19. timings - each bf16 attention kernel, its plain version and the
+  19. kernel 5 at head dims 512 and 256 (the VAE's (1|5, 4096, 1, 512), a
+               ragged D=512 length, (2, 1024, 8, 256)), qk8 and qk8+pv8: vs its
+               plain version at the kernel's key tile and vs attention_xla;
+               attention(backend='pallas_pv_int8') launches it; timed beside
+               SDPA and kernel 1.
+  20. envmap - a seeded 1024x2048 HDR panorama written with the port's .hdr
+               codec and read back through load_hdr (RGBE precision); the
+               cubemap and direct projections and the ball tone map at
+               512x512 on the card against the same functions on the CPU.
+  21. forward main path - load_pipeline(model_type='forward') at the full 7B
+               width, then forward_render() of seeded uint8 G-buffers and the
+               panorama at 512x512 (1 frame, 15 steps, guidance 0,
+               env_format='proj'), first and warm call, and a 9-frame job:
+               outputs and attention launches (28 x 15 + 8 encodes + 1 decode).
+  22. forward reference - one forward DiT step through the kernels vs the
+               plain attention path, and its profile.
+  23. timings - each bf16 attention kernel, its plain version and the
                library call at the main path's attention shapes.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
@@ -91,6 +109,10 @@ DIT_SHAPE = (5, 1024, 1024, 32, 128)     # 5 passes x one 512x512 frame
 VAE_ENC_SHAPE = (1, 4096, 4096, 1, 512)  # mid-block spatial attention, encode
 VAE_DEC_SHAPE = (5, 4096, 4096, 1, 512)  # and decode of the 5 pass rows
 FLAGSHIP_SHAPE = (1, 28160, 28160, 32, 128)
+# The forward render's DiT attention: one 512x512 frame, and a 9-frame clip
+# (2 latent frames); its VAE attention is VAE_ENC_SHAPE (8 encodes, 1 decode).
+FWD_DIT_SHAPE = (1, 1024, 1024, 32, 128)
+FWD9_DIT_SHAPE = (1, 2048, 2048, 32, 128)
 # The DiT's block matmuls at the main path's 5 x 1024 tokens, (M, K, N):
 # fa wq/wk/wv/wo, mlp w1, mlp w2.
 QMM_SHAPES = ((5120, 4096, 4096), (5120, 4096, 16384), (5120, 16384, 4096))
@@ -225,12 +247,30 @@ def device_phase():
 
 
 def build_phase():
+    import threading
+
+    from diffusionrenderer_tpu_torch import io as tio
     from diffusionrenderer_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
+    # The HDR codec (host C++ compiler, zlib) builds beside the nvcc jobs.
+    codec_err, codec_s = [], []
+
+    def build_codec():
+        try:
+            tio.codec()
+        except (RuntimeError, OSError) as e:
+            codec_err.append(str(e))
+        codec_s.append(time.perf_counter() - t0)
+
+    codec = threading.Thread(target=build_codec)
+    codec.start()
     cuda_build.build_all()
+    codec.join()
+    check(not codec_err, f"the HDR codec did not build: {codec_err}")
     say(f"built {len(cuda_build.SOURCES)} sources in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc s: {json.dumps({k: round(v, 1) for k, v in cuda_build.build_seconds.items()})})")
+        f"(nvcc s: {json.dumps({k: round(v, 1) for k, v in cuda_build.build_seconds.items()})}; "
+        f"HDR codec {codec_s[0]:.1f} s)")
     for name in cuda_build.SOURCES:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -268,6 +308,10 @@ def kernels_phase():
     errs = [
         kernel_case("dit", DIT_SHAPE, rms_normed=True, q_scale=1.0,
                     expect_branch="noshift", seed=1),
+        kernel_case("forward_dit", FWD_DIT_SHAPE, rms_normed=True, q_scale=1.0,
+                    expect_branch="noshift", seed=8),
+        kernel_case("forward_dit_9_frames", FWD9_DIT_SHAPE, rms_normed=True, q_scale=1.0,
+                    expect_branch="noshift", seed=9),
         kernel_case("vae_d512", VAE_ENC_SHAPE, rms_normed=False, q_scale=1.0,
                     expect_branch="noshift", seed=2),
         kernel_case("vae_decode_d512", VAE_DEC_SHAPE, rms_normed=False, q_scale=1.0,
@@ -305,7 +349,7 @@ def flagship_phase():
     b, lq, lk, h, d = FLAGSHIP_SHAPE
     rec = {"shape": list(FLAGSHIP_SHAPE), "ms": kernel, "online_ms": online,
            "online_bound_ms": attention_bound(FLAGSHIP_SHAPE, noshift=False)[0],
-           "headroom_ms": headroom,
+           "headroom_ms": headroom, "headroom_bound_ms": headroom_bound(FLAGSHIP_SHAPE)[0],
            "library_ms": library, "plain_ms_2_heads": plain2,
            "online_plain_ms_2_heads": online_plain2, "bound_ms": bound,
            "bound_by": by, "tflops": 4 * b * lq * lk * h * d / kernel / 1e9,
@@ -432,7 +476,8 @@ def fa8_case(name, shape, pv8, seed, rms_normed=True):
     got = fa.flash_attention(q, k, v, qk_int8=True, pv_int8=pv8)
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
-    want = fa.flash_attention_int8_plain(q, k, v, pv_int8=pv8, block_k=fa.INT8_BLOCK_K)
+    want = fa.flash_attention_int8_plain(q, k, v, pv_int8=pv8,
+                                         block_k=fa.INT8_BLOCK_K[shape[4]])
     err, rel, ok = compare(got, want)
     xla_err, xla_limit, alg_err = int8_vs_exact(got, q, k, v, pv8)
     rec = {"case": name, "shape": list(shape), "pv_int8": pv8, "max_abs_err": err,
@@ -447,12 +492,53 @@ def fa8_case(name, shape, pv8, seed, rms_normed=True):
     return err, rec
 
 
-def fa8_phase():
-    """Kernel 5: the DiT and ragged shapes, then timings at the DiT and
-    flagship shapes (kernel launch alone; the pre-passes apart)."""
+def fa8_timings(label, shape, *, rms_normed, reps, seed, two_heads=False):
+    """Kernel 5's launch alone at one shape (qk8 and qk8+pv8), its
+    pre-passes, its plain version (on 2 heads, and held to it there, when
+    two_heads), kernel 1 and SDPA on the same inputs, and the bound."""
     import torch
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
 
+    q, k, v = make_qkv(shape, rms_normed=rms_normed, seed=seed)
+    stats = fa.flash_headroom(q, k, v)
+    tile = fa.INT8_BLOCK_K[shape[4]]
+    rec = {"shape": list(shape), "library_ms": sdpa_ms(q, k, v, reps),
+           "bf16_kernel_ms": time_ms(lambda: fa.flash_attention_kernel(q, k, v, stats), reps)}
+    for pv8 in (False, True):
+        ops = fa.int8_operands(q, k, v, pv_int8=pv8)
+        key = "pv8" if pv8 else "qk8"
+        rec[f"{key}_ms"] = time_ms(lambda: fa.flash_attention_int8_launch(ops), reps)
+        rec[f"{key}_prepass_ms"] = time_ms(lambda: fa.int8_operands(q, k, v, pv_int8=pv8), reps)
+        rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = fa8_bound(shape, pv8)
+        rec[f"{key}_tops"] = 4 * math.prod(shape) / rec[f"{key}_ms"] / 1e9
+        if not two_heads:
+            rec[f"{key}_plain_ms"] = time_ms(lambda: fa.flash_attention_int8_plain(
+                q, k, v, pv_int8=pv8, block_k=tile), 2, 1)
+        else:
+            out = fa.flash_attention_int8_launch(ops)[:, :, :2]
+            q2, k2, v2 = (x[:, :, :2].contiguous() for x in (q, k, v))
+            t0 = time.perf_counter()
+            want = fa.flash_attention_int8_plain(q2, k2, v2, pv_int8=pv8, block_k=tile)
+            torch.cuda.synchronize()
+            rec[f"{key}_plain_ms_2_heads"] = (time.perf_counter() - t0) * 1e3
+            err, rel, ok = compare(out, want)
+            xla_err, xla_limit, alg_err = int8_vs_exact(out, q2, k2, v2, pv8)
+            rec[f"{key}_2_heads"] = {"max_abs_err": err, "rel_l2": rel,
+                                     "xla_max_abs_err": xla_err, "xla_limit": xla_limit,
+                                     "jax_tiling_xla_max_abs_err": alg_err}
+            check(ok and xla_err <= xla_limit,
+                  f"{label} int8 pv8={pv8}: kernel disagrees on 2 heads")
+            del out, q2, k2, v2, want
+        del ops
+    say(f"  int8 attention timings {label} " + json.dumps(rec))
+    del q, k, v, stats
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fa8_phase():
+    """Kernel 5: the DiT and ragged shapes, then timings at the DiT and
+    flagship shapes (kernel launch alone; the pre-passes apart)."""
     errs = []
     for pv8 in (False, True):
         errs.append(fa8_case("dit", DIT_SHAPE, pv8, seed=40 + pv8)[0])
@@ -460,44 +546,10 @@ def fa8_phase():
         # The JAX package's own test shape and inputs (standard normal).
         errs.append(fa8_case("jax_test", (2, 256, 256, 2, 64), pv8, seed=46 + pv8,
                              rms_normed=False)[0])
-    timings = {}
-    for label, shape, reps in (("dit", DIT_SHAPE, 20), ("flagship", FLAGSHIP_SHAPE, 3)):
-        q, k, v = make_qkv(shape, rms_normed=True, seed=44)
-        stats = fa.flash_headroom(q, k, v)
-        rec = {"shape": list(shape),
-               "library_ms": sdpa_ms(q, k, v, reps),
-               "bf16_kernel_ms": time_ms(lambda: fa.flash_attention_kernel(q, k, v, stats), reps)}
-        for pv8 in (False, True):
-            ops = fa.int8_operands(q, k, v, pv_int8=pv8)
-            key = "pv8" if pv8 else "qk8"
-            rec[f"{key}_ms"] = time_ms(lambda: fa.flash_attention_int8_launch(ops), reps)
-            rec[f"{key}_prepass_ms"] = time_ms(
-                lambda: fa.int8_operands(q, k, v, pv_int8=pv8), reps)
-            rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = fa8_bound(shape, pv8)
-            if label == "dit":
-                rec[f"{key}_plain_ms"] = time_ms(lambda: fa.flash_attention_int8_plain(
-                    q, k, v, pv_int8=pv8, block_k=fa.INT8_BLOCK_K), 2, 1)
-            else:
-                out = fa.flash_attention_int8_launch(ops)[:, :, :2]
-                q2, k2, v2 = (x[:, :, :2].contiguous() for x in (q, k, v))
-                t0 = time.perf_counter()
-                want = fa.flash_attention_int8_plain(q2, k2, v2, pv_int8=pv8,
-                                                     block_k=fa.INT8_BLOCK_K)
-                torch.cuda.synchronize()
-                rec[f"{key}_plain_ms_2_heads"] = (time.perf_counter() - t0) * 1e3
-                err, rel, ok = compare(out, want)
-                xla_err, xla_limit, alg_err = int8_vs_exact(out, q2, k2, v2, pv8)
-                rec[f"{key}_2_heads"] = {"max_abs_err": err, "rel_l2": rel,
-                                         "xla_max_abs_err": xla_err, "xla_limit": xla_limit,
-                                         "jax_tiling_xla_max_abs_err": alg_err}
-                check(ok and xla_err <= xla_limit,
-                      f"flagship int8 pv8={pv8}: kernel disagrees on 2 heads")
-                del out, q2, k2, v2, want
-            del ops
-        say(f"  int8 attention timings {label} " + json.dumps(rec))
-        timings[label] = rec
-        del q, k, v, stats
-        torch.cuda.empty_cache()
+    timings = {label: fa8_timings(label, shape, rms_normed=True, reps=reps, seed=44,
+                                  two_heads=label == "flagship")
+               for label, shape, reps in (("dit", DIT_SHAPE, 20),
+                                          ("flagship", FLAGSHIP_SHAPE, 3))}
     return max(errs), timings
 
 
@@ -622,9 +674,10 @@ def reference_phase(pipe):
     return res
 
 
-def profile_phase(params, label: str = "bf16"):
-    """torch.profiler over one DiT forward at the main path's shape: device
-    time by kernel class, and the device's idle share of the wall time."""
+def profile_phase(params, label: str = "bf16", net=None, inputs=None):
+    """torch.profiler over one DiT forward at the main path's shape (the
+    inverse's 5 rows unless net and inputs say otherwise): device time by
+    kernel class, and the device's idle share of the wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -633,8 +686,8 @@ def profile_phase(params, label: str = "bf16"):
     from diffusionrenderer_tpu_torch.models.dit import dit_forward
     from diffusionrenderer_tpu_torch.ops import quant_matmul as qm
 
-    net = get_inverse_renderer_config(512, 512, 1).net
-    x, sigma, cond, ctx = dit_inputs(5)
+    net = net or get_inverse_renderer_config(512, 512, 1).net
+    x, sigma, cond, ctx = inputs or dit_inputs(5)
 
     def step():
         with torch.no_grad():
@@ -808,11 +861,12 @@ def kernel_records(main_rec, max_err, max_stats_err, quant, var):
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
 
     attn_shapes, head_shapes = [], []
-    for shape, normed in ((DIT_SHAPE, True), (VAE_ENC_SHAPE, False), (VAE_DEC_SHAPE, False)):
+    for shape, normed in ((DIT_SHAPE, True), (VAE_ENC_SHAPE, False), (VAE_DEC_SHAPE, False),
+                          (FWD_DIT_SHAPE, True), (FWD9_DIT_SHAPE, True)):
         q, k, v = make_qkv(shape, rms_normed=normed, seed=11)
         stats = fa.flash_headroom(q, k, v)
         noshift = bool(fa.use_noshift(stats, shape[0] * shape[3], shape[2], shape[4]))
-        reps = 20 if shape is DIT_SHAPE else 5
+        reps = 5 if shape[4] == 512 else 20
         bound, by = attention_bound(shape, noshift)
         attn_shapes.append({
             "shape": list(shape), "branch": "noshift" if noshift else "online",
@@ -1218,6 +1272,284 @@ def variant_records(var):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Kernel 5 at head dims 256 and 512, the envmap and the forward render
+# ---------------------------------------------------------------------------
+
+D256_SHAPE = (2, 1024, 1024, 8, 256)
+# Kernel 5 at the wide head dims: the VAE's single-head attention shapes, a
+# ragged D = 512 length, and D = 256 at 8 heads.
+WIDE_INT8_CASES = (("vae_encode_d512", VAE_ENC_SHAPE, False),
+                   ("vae_decode_d512", VAE_DEC_SHAPE, False),
+                   ("ragged_d512", (2, 1000, 777, 1, 512), False), ("d256", D256_SHAPE, True))
+# The forward job of the main path: 512 x 512, one frame.
+FWD_RES = 512
+# Card vs CPU envmap outputs, in [0, 1]: within one bf16 ulp at 1.0 (2^-8),
+# the rounding the env conditions take anyway when they enter the bf16 VAE.
+# Bilinear sampling is continuous in its coordinates, so the ulps by which
+# the card's sin, atan2 and arccos differ from the CPU's move the outputs by
+# their local gradient times ~1e-4 of a texel.
+ENV_TOL = 2.0 ** -8
+
+
+def wide_int8_phase():
+    """Kernel 5 at D = 512 and 256 vs its plain version at the kernel's own
+    key tile (32 keys at D = 512, 64 at D = 256) and vs exact attention
+    (within 10% of the JAX tiling's error), qk8 and qk8+pv8; the
+    attention(backend='pallas_pv_int8') path at each head dim, its launches
+    counted from 0; timings beside SDPA, kernel 1 and the bound."""
+    import torch
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.ops.attention import attention
+
+    max_err, cases = {256: 0.0, 512: 0.0}, []
+    for i, (name, shape, normed) in enumerate(WIDE_INT8_CASES):
+        for pv8 in (False, True):
+            err, rec = fa8_case(name, shape, pv8, seed=70 + 2 * i + pv8, rms_normed=normed)
+            max_err[shape[4]] = max(max_err[shape[4]], err)
+            cases.append(rec)
+    path_launches, timings = {}, {}
+    for label, shape, normed, reps in (("vae_encode_d512", VAE_ENC_SHAPE, False, 10),
+                                       ("vae_decode_d512", VAE_DEC_SHAPE, False, 5),
+                                       ("d256", D256_SHAPE, True, 10)):
+        d = shape[4]
+        if label != "vae_encode_d512":  # the path, counted from 0 at each head dim
+            q, k, v = make_qkv(shape, rms_normed=normed, seed=80)
+            fa.reset_counts()
+            out = attention(q, k, v, backend="pallas_pv_int8")
+            torch.cuda.synchronize()
+            launches = dict(fa.LAUNCHES)
+            path_launches[d] = launches["flash_attention_int8"]
+            err, rel, ok = compare(out, fa.flash_attention_int8_plain(
+                q, k, v, pv_int8=True, block_k=fa.INT8_BLOCK_K[d]))
+            say(f"  attention(backend='pallas_pv_int8') {shape}: launches {launches}, "
+                f"max_abs_err {err:.3e}, rel_l2 {rel:.3e}")
+            check(launches == {"flash_attention": 0, "flash_attention_headroom": 0,
+                               "flash_attention_int8": 1},
+                  f"pallas_pv_int8 at D={d}: launches {launches}, expected one of kernel 5")
+            check(ok and bool(torch.isfinite(out).all()),
+                  f"pallas_pv_int8 at D={d}: disagrees with the plain version")
+            del q, k, v, out
+        timings[label] = fa8_timings(label, shape, rms_normed=normed, reps=reps, seed=80)
+    return {"max_err": max_err, "cases": cases, "path_launches": path_launches,
+            "timings": timings}
+
+
+def wide_int8_records(wide):
+    """Row 5 at D = 512 (the VAE decode shape) and D = 256, int8 QK^T + PV."""
+    recs = []
+    for d, label, others in ((512, "vae_decode_d512", ("vae_encode_d512",)), (256, "d256", ())):
+        t = wide["timings"][label]
+        recs.append({
+            "name": f"flash_attention_int8_d{d}", "route": "cuda",
+            "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_int8.cu",
+            "replaces": f"diffusionrenderer_tpu/ops/flash_attention.py:317 (_flash_kernel_int8) "
+                        f"at head dim {d}",
+            "launches": wide["path_launches"][d],
+            "launches_path": "attention(backend='pallas_pv_int8'), one call; 0 per "
+                             "inverse_render or forward_render",
+            "max_abs_err": wide["max_err"][d], "ms": t["pv8_ms"], "plain_ms": t["pv8_plain_ms"],
+            "bound_ms": t["pv8_bound_ms"], "bound_by": t["pv8_bound_by"],
+            "library_ms": t["library_ms"], "library": "F.scaled_dot_product_attention bf16",
+            "shape": t["shape"], "prepass_ms": t["pv8_prepass_ms"],
+            "timings": {k: wide["timings"][k] for k in (label, *others)}})
+    return recs
+
+
+def synthetic_panorama(seed: int, h: int = 1024, w: int = 2048):
+    """An HDR sky from a seeded generator: a smooth gradient of ~0.2 to ~4,
+    a sun of ~1e3 and 5% multiplicative texel noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, np.pi, h), np.linspace(0, 2 * np.pi, w), indexing="ij")
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    sky = 0.2 + 2.0 * np.sin(yy)[..., None] * (1.0 + 0.8 * np.cos(xx[..., None] + phase))
+    sun = 1000.0 * np.exp(-((yy - 0.7) ** 2 + (xx - rng.uniform(1, 5)) ** 2) / 0.002)
+    pano = (sky + sun[..., None]) * rng.uniform(0.95, 1.05, (h, w, 3))
+    return pano.astype(np.float32)
+
+
+def envmap_phase():
+    """A synthetic 1024 x 2048 panorama through the port's .hdr codec and
+    load_hdr (held to RGBE precision), then the projections at 512 x 512
+    (cubemap, direct) and the ball tone map on the card against the same
+    functions on the CPU, with a few NaN / inf texels.  Returns (the .hdr
+    path, record)."""
+    import numpy as np
+    import torch
+    from diffusionrenderer_tpu_torch import envmap, load_hdr
+    from diffusionrenderer_tpu_torch import io as tio
+
+    pano = synthetic_panorama(61)
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "panorama.hdr")
+    tio.save_hdr(path, pano)
+    env = load_hdr(path)
+    bound = pano.max(axis=-1, keepdims=True) / 128.0 + 1e-6
+    rec = {"panorama": list(pano.shape), "max": float(pano.max()),
+           "roundtrip_max_abs_err": float(np.abs(env[0] - pano).max()),
+           "roundtrip_within_rgbe": bool(np.all(np.abs(env[0] - pano) <= bound)),
+           "load_hdr_is_native": bool(np.array_equal(env[0], tio.native_read(path)))}
+    check(env.shape == (1, *pano.shape) and rec["roundtrip_within_rgbe"],
+          "load_hdr: the .hdr round trip is outside RGBE precision")
+    check(rec["load_hdr_is_native"], "load_hdr did not read through the native codec")
+    src = env[0].copy()
+    src[5, 7] = np.nan
+    src[100, 200] = np.inf
+    src[300, 1000, 1] = -np.inf
+    res = (FWD_RES, FWD_RES)
+    runs = {
+        "proj_cubemap": lambda dev: envmap.render_projection_from_panorama(
+            src, res, env_flip=True, env_rot=90.0, use_cache=False, mode="cubemap", device=dev),
+        "proj_direct": lambda dev: envmap.render_projection_from_panorama(
+            src, res, env_flip=True, env_rot=90.0, use_cache=False, mode="direct", device=dev),
+        "ball": lambda dev: envmap.tonemap_image_direct(src, res, use_cache=False, device=dev),
+    }
+    for name, run in runs.items():
+        got, want = run("cuda"), run("cpu")
+        r = {"ms": time_ms(lambda: run("cuda"), reps=5), "tol": ENV_TOL}
+        for key in ("env_ldr", "env_log"):
+            g, w = got[key], want[key]
+            check(tuple(g.shape) == (1, *res, 3) and g.is_cuda, f"{name} {key}: shape / device")
+            diff = (g.cpu() - w).abs()
+            r[f"{key}_max_abs_err"] = diff.max().item()
+            r[f"{key}_mean_abs_err"] = diff.mean().item()
+            check(bool(torch.isfinite(g).all()) and 0.0 <= g.min().item() and g.max().item() <= 1.0,
+                  f"{name} {key}: not finite in [0, 1]")
+            check(r[f"{key}_max_abs_err"] <= ENV_TOL, f"{name} {key}: card disagrees with CPU")
+        rec[name] = r
+    say("envmap " + json.dumps(rec))
+    return path, rec
+
+
+def forward_gbuffers(frames: int, seed: int):
+    """Seeded uint8 G-buffers in forward_render's argument order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (1, frames, FWD_RES, FWD_RES, 3) if frames > 1 else (1, FWD_RES, FWD_RES, 3)
+    return [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(5)]
+
+
+def forward_call(pipe, gbuf, env, frames: int, expected: int, label: str):
+    """One forward_render with the counts set to 0 just before it and read
+    just after; checks the output and the launches."""
+    import numpy as np
+    import torch
+    from diffusionrenderer_tpu_torch import forward_render
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    out = forward_render(pipe, *gbuf, env, env_format="proj")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES}
+    branches = fa.branch_counts("cuda")
+    rec = {"call": label, "frames": frames, "wall_s": wall,
+           **{f"{k}_s": v for k, v in pipe.timings.items()},
+           "denoise_step_s": pipe.timings["denoise"] / pipe.num_steps,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches, "expected_launches": expected, "branches": branches}
+    say(f"forward_{label} " + json.dumps(rec))
+    check(out.shape == (frames, FWD_RES, FWD_RES, 3), f"forward {label}: shape {out.shape}")
+    check(bool(np.isfinite(out).all()) and out.min() >= 0.0 and out.max() <= 1.0,
+          f"forward {label}: values not finite in [0, 1]")
+    for name in ("flash_attention", "flash_attention_headroom"):
+        check(launches[name] == expected,
+              f"forward {label}: {name} {launches[name]} launches, expected {expected}")
+    check(sum(v for k, v in launches.items() if k not in ("flash_attention",
+                                                        "flash_attention_headroom")) == 0,
+          f"forward {label}: other kernels launched {launches}")
+    check(branches["noshift"] + branches["online"] == expected,
+          f"forward {label}: branch counts do not add up")
+    return rec
+
+
+def forward_path_phase(env_path: str):
+    """The slice's main path: load_pipeline(model_type='forward') at the full
+    FADITV2_7B width, load_hdr, then forward_render of seeded uint8 G-buffers
+    at 512 x 512, one frame, 15 steps, guidance 0, env_format='proj' (first
+    call and warm call), and a 9-frame job.  Returns (pipe, record)."""
+    import torch
+    from diffusionrenderer_tpu_torch import load_hdr, load_pipeline
+    from diffusionrenderer_tpu_torch.config import get_forward_renderer_config
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = load_pipeline(model_type="forward")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg = get_forward_renderer_config(FWD_RES, FWD_RES, 1)
+    net = cfg.net
+    rec = {"load_s": load_s, "load_peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "weights_gib": torch.cuda.memory_allocated() / 2 ** 30,
+           "net": {"model_channels": net.model_channels, "num_blocks": net.num_blocks,
+                   "num_heads": net.num_heads, "patch_dim": net.patch_dim,
+                   "additional_concat_ch": net.additional_concat_ch}}
+    check(pipe.dit_params["x_embedder"]["weight"].shape[1] == net.patch_dim == 612,
+          "forward DiT: patch_dim is not 612")
+    t0 = time.perf_counter()
+    env = load_hdr(env_path)
+    rec["load_hdr_s"] = time.perf_counter() - t0
+    # One attention call per DiT block per step (guidance 0), plus the VAE
+    # mid-block's spatial attention in each of the 8 condition encodes and
+    # in the one decode.
+    expected = pipe.num_steps * net.num_blocks + len(cfg.condition_keys) + 1
+    gbuf = forward_gbuffers(1, seed=62)
+    rec["first"] = forward_call(pipe, gbuf, env, 1, expected, "first")
+    rec["warm"] = forward_call(pipe, gbuf, env, 1, expected, "warm")
+    rec["frames_9"] = forward_call(pipe, forward_gbuffers(9, seed=63), env, 9, expected, "9_frames")
+    say("main_path_forward " + json.dumps({k: v for k, v in rec.items()
+                                           if k not in ("first", "warm", "frames_9")}))
+    return pipe, rec
+
+
+def forward_dit_inputs(net, seed: int):
+    """Seeded bf16 inputs of one forward DiT step at the main path's shape:
+    one 512 x 512 frame's 64 x 64 latent, 136 condition channels."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    lat = FWD_RES // 8
+    x = torch.randn(1, 1, lat, lat, 16, generator=g, device="cuda").bfloat16()
+    cond = torch.randn(1, 1, lat, lat, net.additional_concat_ch, generator=g,
+                       device="cuda").bfloat16()
+    return x, torch.full((1,), 2.5, device="cuda"), cond, torch.zeros(1, dtype=torch.long,
+                                                                      device="cuda")
+
+
+def forward_reference_phase(pipe):
+    """One forward DiT step at the main path's shape through the kernels vs
+    the plain attention path; then its profile."""
+    import torch
+    from diffusionrenderer_tpu_torch.config import get_forward_renderer_config
+    from diffusionrenderer_tpu_torch.models.dit import dit_forward
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    net = get_forward_renderer_config(FWD_RES, FWD_RES, 1).net
+    x, sigma, cond, ctx = forward_dit_inputs(net, 64)
+    with torch.no_grad():
+        fa.reset_counts()
+        got = dit_forward(pipe.dit_params, x, sigma, cond, ctx, net)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_attention"]
+        want = dit_forward(pipe.dit_params, x, sigma, cond, ctx, net, attn_backend="xla")
+    rec = {"dit_rel_err": rel_l2(got, want), "launches": launches,
+           "finite": bool(torch.isfinite(got).all())}
+    say("forward_reference " + json.dumps(rec))
+    check(launches == net.num_blocks, f"forward DiT step: {launches} kernel launches")
+    check(rec["finite"] and rec["dit_rel_err"] <= 2e-2,
+          "forward DiT step: kernel path disagrees with the plain path")
+    rec["profile"] = profile_phase(pipe.dit_params, "forward", net=net,
+                                   inputs=forward_dit_inputs(net, 65))
+    return rec
+
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "diffusionrenderer_tpu_torch")):
         print("chip_smoke.py runs from the root of a checkout: the package "
@@ -1308,9 +1640,26 @@ def main() -> int:
     t = phase("18 timings of kernels 3, 6 and 7")
     var["timings"] = variant_timings_phase()
     say(f"  phase 18: {time.perf_counter() - t:.1f} s")
-    t = phase("19 kernel timings at the main path's shapes")
+    t = phase("19 int8 attention kernel at head dims 512 and 256")
+    wide = wide_int8_phase()
+    say(f"  phase 19: {time.perf_counter() - t:.1f} s")
+    t = phase("20 envmap: .hdr codec + load_hdr, projections on the card vs the CPU")
+    env_path, _ = envmap_phase()
+    say(f"  phase 20: {time.perf_counter() - t:.1f} s")
+    t = phase("21 forward main path: load_pipeline(model_type='forward') + forward_render")
+    pipe, fwd = forward_path_phase(env_path)
+    say(f"  phase 21: {time.perf_counter() - t:.1f} s")
+    t = phase("22 forward reference: kernel path vs plain attention path")
+    forward_reference_phase(pipe)
+    del pipe
+    torch.cuda.empty_cache()
+    say(f"  phase 22: {time.perf_counter() - t:.1f} s")
+    t = phase("23 kernel timings at the main path's shapes")
     records = kernel_records(main_rec, max_err, max_stats_err, quant, var)
-    say(f"  phase 19: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
+    records[0]["launches_forward_render"] = fwd["first"]["launches"]["flash_attention"]
+    records[1]["launches_forward_render"] = fwd["first"]["launches"]["flash_attention_headroom"]
+    records += wide_int8_records(wide)
+    say(f"  phase 23: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
     say(card)  # again here: the end of a long log is what survives
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,10 @@
 diffusionrenderer_tpu for NVIDIA Hopper (H100).
 
 Same configs, module names, layouts and public entry points as the JAX
-package; the flash-attention kernels on the inverse-render path are
-hand-written CUDA (csrc/), built on first use.  Entry points run on CUDA
-unless the caller asks for the CPU (device="cpu").  This package imports
+package (load_pipeline, inverse_render, forward_render, load_hdr); every
+kernel that the JAX package wrote in Pallas has a hand-written CUDA
+counterpart (csrc/), built on first use.  Entry points run on CUDA unless
+the caller asks for the CPU (device="cpu").  This package imports
 neither JAX nor anything of diffusionrenderer_tpu.
 """
 
@@ -22,5 +23,6 @@ from .config import (
     validate_config,
 )
 from .pipeline import DiffusionRendererPipeline
+from .api import forward_render, inverse_render, load_hdr, load_pipeline
 
 __version__ = "0.1.0"

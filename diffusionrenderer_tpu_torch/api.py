@@ -2,6 +2,8 @@
 
     load_pipeline(...)   -> DiffusionRendererPipeline
     inverse_render(...)  -> {basecolor, metallic, roughness, normal, depth}
+    forward_render(...)  -> relit RGB video
+    load_hdr(path)       -> float HDR image
 
 Images are float arrays in [0, 1] (or uint8), channels last; 3D (H, W, C),
 4D (B, H, W, C) and 5D (B, T, H, W, C) inputs are accepted.  The pipeline
@@ -20,6 +22,8 @@ import numpy as np
 import torch
 
 from .config import GBUFFER_INDEX_MAPPING, DiTConfig, VAEConfig
+from .envmap import latlong_vec, render_projection_from_panorama, tonemap_image_direct
+from .io import load_hdr_image
 from .models.dit import init_dit_params
 from .models.quant import quantize_block
 from .models.vae import init_vae_params
@@ -204,3 +208,66 @@ def inverse_render(
                 os.replace(path + ".tmp.npy", path)
         outputs[p] = u8_to_unit_float(raw_u8).reshape(b * t, h, w, c)
     return outputs
+
+
+def forward_render(
+    pipeline: DiffusionRendererPipeline,
+    depth,
+    normal,
+    roughness,
+    metallic,
+    base_color,
+    env_map,
+    guidance: float = 0.0,
+    seed: int = 42,
+    env_format: str = "proj",
+    env_brightness: float = 1.0,
+    env_flip_horizontal: bool = False,
+    env_rotation: float = 180.0,
+) -> np.ndarray:
+    """G-buffers + HDR environment -> relit RGB video, (B*T, H, W, 3) float32
+    in [0, 1].  The G-buffers are images or videos as for inverse_render
+    (uint8, or floats in [0, 1]); env_map is an HDR panorama (or, for
+    'ball', a chrome-ball image): a path, an array or a tensor.
+
+    env_format: 'proj' (panorama -> cubemap -> projection), 'proj_direct'
+    (one equirect resampling) or 'ball' (tone mapping only).  The env
+    projection is the same for every frame: it is computed once, for one
+    frame, on the pipeline's device, and reaches the pipeline as
+    (B, 1, H, W, 3), which broadcasts it over the clip's frames."""
+    pipeline.set_model_type("forward")
+    pipeline.guidance = guidance
+    pipeline.seed = seed
+
+    gbuffers = {"depth": depth, "normal": normal, "roughness": roughness,
+                "metallic": metallic, "basecolor": base_color}
+    data_batch: Dict[str, Any] = {name: _prep_input_video(g) for name, g in gbuffers.items()}
+    b, t, h, w, _ = data_batch["depth"].shape
+    data_batch["video"] = data_batch["depth"]
+
+    if env_format in ("proj", "proj_direct"):
+        env = render_projection_from_panorama(
+            env_map, resolution=(h, w), env_brightness=env_brightness,
+            env_flip=env_flip_horizontal, env_rot=env_rotation, num_frames=1,
+            mode="cubemap" if env_format == "proj" else "direct", device=pipeline.device)
+    elif env_format == "ball":
+        env = tonemap_image_direct(env_map, resolution=(h, w), num_frames=1,
+                                   device=pipeline.device)
+    else:
+        raise ValueError(f"Unknown env_format {env_format!r}")
+
+    # env_ldr and env_log map to [-1, 1]; env_nrm, the direction field, is
+    # not rescaled.
+    env_ldr = to_signed_range(env["env_ldr"][0].cpu().numpy())
+    env_log = to_signed_range(env["env_log"][0].cpu().numpy())
+    env_nrm = latlong_vec(h, w, pipeline.device).cpu().numpy()
+    for name, x in (("env_ldr", env_ldr), ("env_log", env_log), ("env_nrm", env_nrm)):
+        data_batch[name] = np.repeat(x[None, None], b, axis=0)  # (B, 1, H, W, 3)
+
+    out = pipeline.generate(data_batch, seed=seed)
+    return u8_to_unit_float(out).reshape(b * t, h, w, 3)
+
+
+def load_hdr(path: str) -> np.ndarray:
+    """(1, H, W, 3) float32 HDR image; values may exceed 1."""
+    return load_hdr_image(path)

@@ -23,9 +23,9 @@
 // the V operand read once; at the DiT's (5, 1024, 32, 128) it is operation
 // bound.  This first version keeps the design simple, as the bf16 kernel in
 // flash_attention.cu does:
-//   * one 128-thread block per (64-query tile, head, batch); each warp owns
-//     16 query rows; a loop over 64-key tiles, K and V double-buffered in
-//     shared memory with cp.async, zero-filled past Lk;
+//   * one 128-thread block per (query tile, head, batch) and a loop over key
+//     tiles, K and V double-buffered in shared memory with cp.async,
+//     zero-filled past Lk;
 //   * QK^T on mma.sync.m16n8k32.row.col.s32.s8.s8.s32: q (Lq x D, row-major)
 //     is the A operand straight from device memory, k (Lk x D, D-contiguous)
 //     is already the "col" B operand, read with plain ldmatrix;
@@ -40,6 +40,17 @@
 //     group of transposed V (position 16h + 4t + 2a + b holds key
 //     16h + 8a + 2t + b), so each thread packs its own four P values into an
 //     A register as they lie; the sum over keys does not depend on their order.
+//   * wide heads (D = 256, 512) split D across warps (Tile<D>): a warp holding
+//     all D output columns would need D/2 fp32 accumulator registers (256 at
+//     D = 512, past the 255 cap) plus D/8 for its q fragments.  Warp (wr, wd)
+//     owns query rows wr*16..+16 and head-dim slice wd*DS..+DS: it forms the
+//     int32 partial QK^T of its slice, the WD partials of a row group are
+//     summed in shared memory (int32 sums are exact, so every warp of the group
+//     holds the same S, and so the same m, l and P, whatever the order), and it
+//     accumulates PV for its own DS output columns.  Per warp the work is then
+//     that of D = 128.  At D = 512 the key tile is 32 (shared memory: two
+//     stages of 64-key bf16 V would take 220 KB and one block per SM; 32 keys
+//     take 112 KB and leave two), so the plain version walks 32-key tiles there.
 // wgmma, TMA and warp specialisation are left for later work.
 
 #include <cuda_bf16.h>
@@ -49,19 +60,32 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int BQ = 64, BK = 64;
 constexpr float kNegInf = -1e30f;  // the JAX kernel's padded-key bias
 constexpr float kLog2_127 = 6.988684686772166f;
 constexpr int kUnsupported = 10002;
 
+template <int D> struct Tile;
+// WD: warps splitting the head dim; BK: keys per shared-memory tile.
+template <> struct Tile<64> { static constexpr int WD = 1, BK = 64; };
+template <> struct Tile<128> { static constexpr int WD = 1, BK = 64; };
+template <> struct Tile<256> { static constexpr int WD = 2, BK = 64; };
+template <> struct Tile<512> { static constexpr int WD = 4, BK = 32; };
+
 template <int D, bool kPv8> struct Cfg {
+  static constexpr int WD = Tile<D>::WD;
+  static constexpr int BK = Tile<D>::BK;
+  static constexpr int WR = 4 / WD;                    // warps along the query rows
+  static constexpr int BQ = 16 * WR;                   // query rows per block
+  static constexpr int DS = D / WD;                    // head-dim slice of one warp
   static constexpr int KPITCH = D + 16;                // int8 K rows (bytes)
   static constexpr int VPITCH = kPv8 ? BK + 16 : (D + 8) * 2;  // bytes per V smem row
   static constexpr int VROWS = kPv8 ? D : BK;
+  static constexpr int RED_PITCH = BK + 4;             // int32 partial S rows
   static constexpr int k_bytes = BK * KPITCH;
   static constexpr int v_bytes = VROWS * VPITCH;
   static constexpr int stage_bytes = k_bytes + v_bytes + BK * 4;  // + the tile's sk
-  static constexpr size_t smem_bytes = size_t(2) * stage_bytes + D * 4;  // + sv
+  static constexpr int red_bytes = WD > 1 ? WR * WD * 16 * RED_PITCH * 4 : 0;
+  static constexpr size_t smem_bytes = size_t(2) * stage_bytes + red_bytes + D * 4;  // + sv
 };
 
 struct Args {
@@ -136,16 +160,20 @@ __device__ __forceinline__ uint32_t load_q4(const int8_t* p, bool valid) {
 template <int D, bool kPv8>
 __global__ void __launch_bounds__(kThreads) flash_int8_kernel(Args p) {
   using C = Cfg<D, kPv8>;
+  constexpr int BK = C::BK, DS = C::DS;
   constexpr int NS = BK / 8;   // S n-tiles per key tile
-  constexpr int KS = D / 32;   // k32 steps of QK^T
-  constexpr int NO = D / 8;    // output n-tiles
+  constexpr int KS = DS / 32;  // k32 steps of QK^T over the warp's D slice
+  constexpr int NO = DS / 8;   // output n-tiles of the warp's D slice
+  static_assert(NO % 2 == 0 && (BK == 32 || BK == 64), "tile shapes");
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sv_s = reinterpret_cast<float*>(smem + 2 * C::stage_bytes);
+  int* red = reinterpret_cast<int*>(smem + 2 * C::stage_bytes);
+  float* sv_s = reinterpret_cast<float*>(smem + 2 * C::stage_bytes + C::red_bytes);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = warp / C::WD, wd = warp % C::WD;
   const int g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int r0 = blockIdx.x * BQ + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = blockIdx.x * C::BQ + wr * 16 + g, r1 = r0 + 8;
   const bool ok0 = r0 < p.Lq, ok1 = r1 < p.Lq;
   const long long row_stride = (long long)p.H * D;
   const long long bh = (long long)b * p.H + h;
@@ -157,11 +185,11 @@ __global__ void __launch_bounds__(kThreads) flash_int8_kernel(Args p) {
     for (int c = tid; c < D; c += kThreads) sv_s[c] = p.sv[bh * D + c];
   }
 
-  // q fragments (A operand) for this warp's 16 rows stay in registers.
+  // q fragments (A operand) for this warp's 16 rows and D slice stay in registers.
   uint32_t qf[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
-    const int d = ks * 32 + 4 * t4;
+    const int d = wd * DS + ks * 32 + 4 * t4;
     qf[ks][0] = load_q4(qb + (long long)r0 * row_stride + d, ok0);
     qf[ks][1] = load_q4(qb + (long long)r1 * row_stride + d, ok1);
     qf[ks][2] = load_q4(qb + (long long)r0 * row_stride + d + 16, ok0);
@@ -211,6 +239,7 @@ __global__ void __launch_bounds__(kThreads) flash_int8_kernel(Args p) {
   for (int t = 0; t < NO; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
+  // ldmatrix.x4 lane addresses of two 8-row groups x two 16-byte columns.
   const int kb_row = (lane & 7) + (lane >> 4) * 8, kb_col = ((lane >> 3) & 1) * 16;
   const int nk = (p.Lk + BK - 1) / BK;
   load_tile(0, 0);
@@ -226,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) flash_int8_kernel(Args p) {
     const unsigned char* Vs = Ks + C::k_bytes;
     const float* sks = reinterpret_cast<const float*>(Vs + C::v_bytes);
 
-    // S = qi ki^T in int32, then the rank-1 dequant (s * sq_i) * sk_j.
+    // S = qi ki^T in int32 over this warp's D slice.
     int si[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) si[n][0] = si[n][1] = si[n][2] = si[n][3] = 0;
@@ -235,11 +264,38 @@ __global__ void __launch_bounds__(kThreads) flash_int8_kernel(Args p) {
 #pragma unroll
       for (int n = 0; n < NS; n += 2) {
         uint32_t r[4];
-        ldmatrix_x4(r, smem_u32(Ks + (n * 8 + kb_row) * C::KPITCH + ks * 32 + kb_col));
+        ldmatrix_x4(r, smem_u32(Ks + (n * 8 + kb_row) * C::KPITCH + wd * DS + ks * 32 + kb_col));
         mma_s8(si[n], qf[ks], r[0], r[1]);
         mma_s8(si[n + 1], qf[ks], r[2], r[3]);
       }
     }
+    if constexpr (C::WD > 1) {
+      // The D-slice partials of a row group, summed in shared memory: exact
+      // int32 sums, so every warp of the group holds the same S.
+      int* mine = red + (wr * C::WD + wd) * 16 * C::RED_PITCH;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const int col = n * 8 + 2 * t4;
+        mine[g * C::RED_PITCH + col] = si[n][0];
+        mine[g * C::RED_PITCH + col + 1] = si[n][1];
+        mine[(g + 8) * C::RED_PITCH + col] = si[n][2];
+        mine[(g + 8) * C::RED_PITCH + col + 1] = si[n][3];
+      }
+      __syncthreads();
+      const int* grp = red + wr * C::WD * 16 * C::RED_PITCH;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int idx = (g + (e >> 1) * 8) * C::RED_PITCH + n * 8 + 2 * t4 + (e & 1);
+          int acc = 0;
+#pragma unroll
+          for (int w = 0; w < C::WD; ++w) acc += grp[w * 16 * C::RED_PITCH + idx];
+          si[n][e] = acc;
+        }
+      }
+    }
+    // The rank-1 dequant (s * sq_i) * sk_j.
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
@@ -296,20 +352,38 @@ __global__ void __launch_bounds__(kThreads) flash_int8_kernel(Args p) {
         pa[kp][2] = pack_s8(s[n + 2][0], s[n + 2][1], s[n + 3][0], s[n + 3][1]);
         pa[kp][3] = pack_s8(s[n + 2][2], s[n + 2][3], s[n + 3][2], s[n + 3][3]);
       }
-      const int v_row = lane & 7, v_col = (lane >> 3) * 16;
-#pragma unroll
-      for (int t = 0; t < NO; ++t) {
-        uint32_t r[4];  // b0, b1 of key steps 0 and 1 for channels 8t..8t+7
-        ldmatrix_x4(r, smem_u32(Vs + (t * 8 + v_row) * C::VPITCH + v_col));
-        int pv[4] = {0, 0, 0, 0};
-        mma_s8(pv, pa[0], r[0], r[1]);
-        mma_s8(pv, pa[1], r[2], r[3]);
-        const int c = t * 8 + 2 * t4;
+      // acc = acc * alpha + f32(P_i8 V_i8) * sv for output n-tile t.
+      auto dequant_acc = [&](float (&acc)[4], const int (&pv)[4], int t) {
+        const int c = wd * DS + t * 8 + 2 * t4;
         const float sv0 = sv_s[c], sv1 = sv_s[c + 1];
-        o[t][0] = __fadd_rn(__fmul_rn(o[t][0], a0), __fmul_rn(__int2float_rn(pv[0]), sv0));
-        o[t][1] = __fadd_rn(__fmul_rn(o[t][1], a0), __fmul_rn(__int2float_rn(pv[1]), sv1));
-        o[t][2] = __fadd_rn(__fmul_rn(o[t][2], a1), __fmul_rn(__int2float_rn(pv[2]), sv0));
-        o[t][3] = __fadd_rn(__fmul_rn(o[t][3], a1), __fmul_rn(__int2float_rn(pv[3]), sv1));
+        acc[0] = __fadd_rn(__fmul_rn(acc[0], a0), __fmul_rn(__int2float_rn(pv[0]), sv0));
+        acc[1] = __fadd_rn(__fmul_rn(acc[1], a0), __fmul_rn(__int2float_rn(pv[1]), sv1));
+        acc[2] = __fadd_rn(__fmul_rn(acc[2], a1), __fmul_rn(__int2float_rn(pv[2]), sv0));
+        acc[3] = __fadd_rn(__fmul_rn(acc[3], a1), __fmul_rn(__int2float_rn(pv[3]), sv1));
+      };
+      const unsigned char* Vw = Vs + wd * DS * C::VPITCH;  // this warp's channel rows
+      if constexpr (BK == 64) {
+        const int v_row = lane & 7, v_col = (lane >> 3) * 16;
+#pragma unroll
+        for (int t = 0; t < NO; ++t) {
+          uint32_t r[4];  // b0, b1 of key steps 0 and 1 for channels 8t..8t+7
+          ldmatrix_x4(r, smem_u32(Vw + (t * 8 + v_row) * C::VPITCH + v_col));
+          int pv[4] = {0, 0, 0, 0};
+          mma_s8(pv, pa[0], r[0], r[1]);
+          mma_s8(pv, pa[1], r[2], r[3]);
+          dequant_acc(o[t], pv, t);
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < NO; t += 2) {
+          uint32_t r[4];  // b0, b1 of the one key step for channels 8t.. and 8(t+1)..
+          ldmatrix_x4(r, smem_u32(Vw + (t * 8 + kb_row) * C::VPITCH + kb_col));
+          int pv0[4] = {0, 0, 0, 0}, pv1[4] = {0, 0, 0, 0};
+          mma_s8(pv0, pa[0], r[0], r[1]);
+          mma_s8(pv1, pa[0], r[2], r[3]);
+          dequant_acc(o[t], pv0, t);
+          dequant_acc(o[t + 1], pv1, t + 1);
+        }
       }
     } else {
 #pragma unroll
@@ -322,7 +396,7 @@ __global__ void __launch_bounds__(kThreads) flash_int8_kernel(Args p) {
       const __nv_bfloat16* Vt = reinterpret_cast<const __nv_bfloat16*>(Vs);
       constexpr int VP = C::VPITCH / 2;  // pitch in bf16 elements
       const int vkey = (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int vcol = (lane >> 4) * 8;
+      const int vcol = wd * DS + (lane >> 4) * 8;
 #pragma unroll
       for (int kp = 0; kp < BK / 16; ++kp) {
         const uint32_t a[4] = {pack_bf16(s[2 * kp][0], s[2 * kp][1]),
@@ -349,7 +423,7 @@ __global__ void __launch_bounds__(kThreads) flash_int8_kernel(Args p) {
   __nv_bfloat16* ob = p.o + (long long)b * p.Lq * row_stride + (long long)h * D;
 #pragma unroll
   for (int t = 0; t < NO; ++t) {
-    const int d = t * 8 + 2 * t4;
+    const int d = wd * DS + t * 8 + 2 * t4;
     if (ok0)
       *reinterpret_cast<uint32_t*>(ob + (long long)r0 * row_stride + d) =
           pack_bf16(o[t][0] / l0, o[t][1] / l0);
@@ -361,11 +435,12 @@ __global__ void __launch_bounds__(kThreads) flash_int8_kernel(Args p) {
 
 template <int D, bool kPv8> int launch(const Args& a, cudaStream_t stream) {
   using C = Cfg<D, kPv8>;
+  if (kPv8 && (a.lk_pad < a.Lk || a.lk_pad % C::BK)) return kUnsupported;
   cudaError_t e = cudaFuncSetAttribute(flash_int8_kernel<D, kPv8>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(C::smem_bytes));
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);
+  const dim3 grid((a.Lq + C::BQ - 1) / C::BQ, a.H, a.B);
   flash_int8_kernel<D, kPv8><<<grid, kThreads, C::smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
@@ -375,18 +450,26 @@ template <int D, bool kPv8> int launch(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 const char* drt_flash_int8_error_string(int code) {
-  if (code == kUnsupported) return "unsupported head dim or sizes (D in {64, 128})";
+  if (code == kUnsupported) return "unsupported head dim or sizes (D in {64, 128, 256, 512})";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int drt_flash_int8_block_k() { return BK; }
+// Keys per tile at head dim D (the plain version walks the same tiles), or
+// -1 for a head dim the kernel does not take.
+int drt_flash_int8_block_k(int D) {
+  switch (D) {
+    case 64: return Tile<64>::BK;
+    case 128: return Tile<128>::BK;
+    case 256: return Tile<256>::BK;
+    case 512: return Tile<512>::BK;
+    default: return -1;
+  }
+}
 
 int drt_flash_attention_int8(const void* q, const void* k, const void* v, const void* sq,
                              const void* sk, const void* sv, void* o, int B, int Lq, int Lk,
                              int H, int D, int lk_pad, int pv8, void* stream) {
-  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || B > 65535 || H > 65535 ||
-      (pv8 && (lk_pad < Lk || lk_pad % BK)))
-    return kUnsupported;
+  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || B > 65535 || H > 65535) return kUnsupported;
   const Args a{static_cast<const int8_t*>(q), static_cast<const int8_t*>(k), v,
                static_cast<const float*>(sq), static_cast<const float*>(sk),
                static_cast<const float*>(sv), static_cast<__nv_bfloat16*>(o),
@@ -397,6 +480,10 @@ int drt_flash_attention_int8(const void* q, const void* k, const void* v, const 
     case 129: return launch<64, true>(a, st);
     case 256: return launch<128, false>(a, st);
     case 257: return launch<128, true>(a, st);
+    case 512: return launch<256, false>(a, st);
+    case 513: return launch<256, true>(a, st);
+    case 1024: return launch<512, false>(a, st);
+    case 1025: return launch<512, true>(a, st);
     default: return kUnsupported;
   }
 }

@@ -58,8 +58,9 @@ HEADROOM_LIMIT = 120.0
 _LOG2_127 = math.log2(127.0)
 _NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256, 512)
-INT8_HEAD_DIMS = (64, 128)
-INT8_BLOCK_K = 64  # keys per tile of the int8 kernel (csrc/flash_attention_int8.cu BK)
+# Keys per tile of the int8 kernel at each head dim it takes
+# (csrc/flash_attention_int8.cu Tile<D>::BK).
+INT8_BLOCK_K = {64: 64, 128: 64, 256: 64, 512: 32}
 _JAX_DEFAULT_BLOCK_K = 2816  # diffusionrenderer_tpu/ops/flash_attention.py DEFAULT_BLOCK_K
 
 # Launches of each kernel since the last reset_counts(), counted by its wrapper.
@@ -238,22 +239,14 @@ def _transpose_v_int8(vi: torch.Tensor, lk_pad: int) -> torch.Tensor:
     return vt.permute(0, 1, 2, 3, 4, 6, 5, 7).reshape(b, h, d, lk_pad).contiguous()
 
 
-def _int8_head_dim(d: int) -> None:
-    if d not in INT8_HEAD_DIMS:
-        raise NotImplementedError(
-            f"int8 flash attention takes head dims {INT8_HEAD_DIMS}, not {d} (no path of "
-            "the port needs more; ROADMAP.md queue 2, item 5: int8 attention at "
-            "D in {256, 512})")
-
-
 def flash_attention_int8_plain(q, k, v, *, pv_int8: bool = False,
                                block_k: Optional[int] = None) -> torch.Tensor:
     """The int8 kernel's function with its rounding points, walking the keys
     in tiles of block_k (None: the JAX kernel's default tiling; the kernel's
-    own tile is INT8_BLOCK_K).  q: (B, Lq, H, D); k, v: (B, Lk, H, D)."""
+    own tile is INT8_BLOCK_K[D]).  Any head dim, as in JAX.
+    q: (B, Lq, H, D); k, v: (B, Lk, H, D)."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
-    _int8_head_dim(d)
     bk = reference_block_k(lk, d, block_k)
     qi, sq = _quant_rows_int8(q_prescale(q))  # q carries scale*log2 e
     ki, sk = _quant_rows_int8(k)
@@ -329,9 +322,12 @@ def _lib_int8() -> ctypes.CDLL:
         lib.drt_flash_attention_int8.restype = i32
         lib.drt_flash_int8_error_string.argtypes = [i32]
         lib.drt_flash_int8_error_string.restype = ctypes.c_char_p
+        lib.drt_flash_int8_block_k.argtypes = [i32]
         lib.drt_flash_int8_block_k.restype = i32
-        if lib.drt_flash_int8_block_k() != INT8_BLOCK_K:
-            raise RuntimeError("csrc/flash_attention_int8.cu BK != INT8_BLOCK_K")
+        for d, bk in INT8_BLOCK_K.items():
+            if lib.drt_flash_int8_block_k(d) != bk:
+                raise RuntimeError(f"csrc/flash_attention_int8.cu Tile<{d}>::BK != "
+                                   f"INT8_BLOCK_K[{d}]")
         _int8_handle = lib
     return _int8_handle
 
@@ -461,10 +457,9 @@ def int8_operands(q, k, v, *, pv_int8: bool = False) -> Int8Operands:
     The V channel scales reduce over all tokens, so they finish before the
     kernel starts."""
     _check_kernel_inputs(q, k, v)
-    _int8_head_dim(q.shape[-1])
     qi, sq = _quant_rows_int8(q_prescale(q))
     ki, sk = _quant_rows_int8(k)
-    lk_pad = _round_up(k.shape[1], INT8_BLOCK_K)
+    lk_pad = _round_up(k.shape[1], 64)  # a multiple of every key tile
     if not pv_int8:
         return Int8Operands(qi, ki, v, sq, sk, None, lk_pad)
     vi, sv = _quant_channels_int8(v)
@@ -518,9 +513,10 @@ def flash_attention(q, k, v, block_q: Optional[int] = None, block_k: Optional[in
     if bounded and pipelined:
         return flash_attention_bounded_kernel(q, k, v, row_bound(q, k), pipelined=True)
     if int8:
-        if block_k not in (None, INT8_BLOCK_K):
-            raise ValueError(f"the int8 kernel walks keys in tiles of {INT8_BLOCK_K}, "
-                             f"not block_k={block_k}")
+        tile = INT8_BLOCK_K.get(q.shape[-1])
+        if block_k not in (None, tile):
+            raise ValueError(f"the int8 kernel walks keys in tiles of {tile} at head dim "
+                             f"{q.shape[-1]}, not block_k={block_k}")
         return flash_attention_int8_launch(int8_operands(q, k, v, pv_int8=pv_int8))
     stats = flash_headroom(q, k, v) if bounded else None
     return flash_attention_kernel(q, k, v, stats)

@@ -153,7 +153,9 @@ def test_w8a8_kernel_refuses_illegal_shapes(cuda):
 
 
 @pytest.mark.parametrize("b,lq,lk,h,d", [(5, 1024, 1024, 32, 128), (2, 1000, 777, 4, 128),
-                                         (1, 300, 200, 2, 64)])
+                                         (1, 300, 200, 2, 64), (1, 4096, 4096, 1, 512),
+                                         (2, 1000, 777, 1, 512), (2, 1024, 1024, 8, 256),
+                                         (1, 300, 200, 2, 256)])
 @pytest.mark.parametrize("pv8", [False, True], ids=["qk8", "qk8pv8"])
 def test_int8_attention_kernel_matches_plain(cuda, b, lq, lk, h, d, pv8):
     q, k, v = qkv(cuda, b, lq, lk, h, d)
@@ -163,7 +165,7 @@ def test_int8_attention_kernel_matches_plain(cuda, b, lq, lk, h, d, pv8):
     assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_headroom": 0,
                             "flash_attention_int8": 1}
     assert_close(got, tfa.flash_attention_int8_plain(q, k, v, pv_int8=pv8,
-                                                     block_k=tfa.INT8_BLOCK_K))
+                                                     block_k=tfa.INT8_BLOCK_K[d]))
     # Within the JAX package's int8 bounds of exact attention, or of what the
     # same algorithm at the JAX kernel's own tiling reaches on these inputs.
     exact = attention_xla(q, k, v).float()
@@ -171,10 +173,25 @@ def test_int8_attention_kernel_matches_plain(cuda, b, lq, lk, h, d, pv8):
     assert (got.float() - exact).abs().max() <= max(0.025 if pv8 else 0.012, 1.1 * alg.item())
 
 
-def test_int8_attention_refuses_wide_heads(cuda):
-    q, k, v = qkv(cuda, 1, 64, 64, 1, 256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_int8_attention_refuses_other_head_dims(cuda):
+    q, k, v = qkv(cuda, 1, 64, 64, 1, 96)
+    with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(q, k, v, pv_int8=True)
+    q, k, v = qkv(cuda, 1, 64, 64, 1, 512)
+    with pytest.raises(ValueError, match="tiles of 32"):
+        tfa.flash_attention(q, k, v, pv_int8=True, block_k=64)
+
+
+def test_pv_int8_backend_launches_the_int8_kernel_at_d512(cuda):
+    """attention(backend='pallas_pv_int8') at the VAE's single-head D = 512."""
+    from diffusionrenderer_tpu_torch.ops.attention import attention
+
+    q, k, v = qkv(cuda, 1, 4096, 4096, 1, 512, seed=3)
+    tfa.reset_counts()
+    got = attention(q, k, v, backend="pallas_pv_int8")
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_int8"] == 1 and tfa.LAUNCHES["flash_attention"] == 0
+    assert_close(got, tfa.flash_attention_int8_plain(q, k, v, pv_int8=True, block_k=32))
 
 
 def test_w8a8_dit_forward_kernels_vs_plain(cuda):
@@ -242,3 +259,54 @@ def test_bounded_kernels_match_plain(cuda, b, lq, lk, h, d, aligned):
     assert_close(shift, tfa.flash_attention_bounded_plain(q, k, v))
     if aligned:  # the shift keeps the bounded softmax exact where exp2(s) overflows
         assert_close(shift, tfa.flash_attention_plain(q, k, v, bounded=False))
+
+
+@pytest.mark.parametrize("mode", ["cubemap", "direct", "ball"])
+def test_envmap_on_card_matches_cpu(cuda, mode):
+    """The envmap path on CUDA tensors against the same functions on the
+    CPU, in [0, 1]: within one bf16 ulp at 1.0 (the rounding the env
+    conditions take when they enter the bf16 VAE)."""
+    import numpy as np
+
+    from diffusionrenderer_tpu_torch import envmap
+
+    rng = np.random.default_rng(0)
+    pano = (np.abs(rng.standard_normal((64, 128, 3))) * 20.0).astype(np.float32)
+    pano[1, 2] = [np.nan, np.inf, -np.inf]
+
+    def run(dev):
+        if mode == "ball":
+            return envmap.tonemap_image_direct(pano, (48, 48), use_cache=False, device=dev)
+        return envmap.render_projection_from_panorama(pano, (48, 64), env_rot=90.0,
+                                                      use_cache=False, mode=mode, device=dev)
+
+    got, want = run(cuda), run("cpu")
+    for key in ("env_ldr", "env_log"):
+        assert got[key].is_cuda
+        assert (got[key].cpu() - want[key]).abs().max().item() <= 2.0 ** -8
+
+
+def test_forward_render_tiny_on_card(cuda):
+    """forward_render through the public API on the card: a 2-block forward
+    DiT with 128-wide heads at 256 x 256 (256 tokens, so its attention takes
+    the flash kernel), 1 and 9 frames."""
+    import numpy as np
+
+    from diffusionrenderer_tpu_torch import forward_render, load_pipeline
+    from diffusionrenderer_tpu_torch.config import VAEConfig
+
+    net = DiTConfig(model_channels=256, num_blocks=2, num_heads=2, additional_concat_ch=136,
+                    adaln_lora_dim=8, crossattn_emb_channels=16, use_context_embedding=False)
+    vae = VAEConfig(encoder_block_out_channels=(8, 12, 16, 16),
+                    decode_block_out_channels=(12, 16, 16, 16), num_layers=1)
+    pipe = load_pipeline(model_type="forward", net_config=net, vae_config=vae, num_steps=3)
+    rng = np.random.default_rng(1)
+    env = (np.abs(rng.standard_normal((64, 128, 3))) * 20.0).astype(np.float32)
+    for frames in (1, 9):
+        shape = (1, frames, 256, 256, 3) if frames > 1 else (1, 256, 256, 3)
+        g = [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(5)]
+        tfa.reset_counts()
+        out = forward_render(pipe, *g, env)
+        assert tfa.LAUNCHES["flash_attention"] == 3 * net.num_blocks
+        assert out.shape == (frames, 256, 256, 3)
+        assert np.isfinite(out).all() and 0.0 <= out.min() and out.max() <= 1.0

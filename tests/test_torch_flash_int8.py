@@ -4,7 +4,8 @@ On the CPU the port runs the int8 kernel's plain version
 (`flash_attention_int8_plain`), held against JAX's
 `flash_attention(qk_int8=True[, pv_int8=True], interpret=True)` in fp32 on
 the same numpy inputs, at JAX's default key tiling and at explicit ones
-(the kernel's own 64-key tile among them): P is rounded relative to the
+(the kernel's own 64-key tile, and its 32-key tile at D = 512, among them),
+at head dims 64 to 512: P is rounded relative to the
 running max of the tiles seen so far, so the result depends on the tiling
 and both walk the same tiles.  The int8 codes and integer sums are exact in
 both; exp2 and the fp32 sums differ by an ulp.  qk8: tolerance 2e-5.
@@ -31,7 +32,8 @@ from diffusionrenderer_tpu.ops.attention import attention as j_attention
 from diffusionrenderer_tpu_torch.ops import flash_attention as tfa
 from diffusionrenderer_tpu_torch.ops.attention import attention
 
-CASES = [(1, 256, 256, 2, 64), (2, 200, 328, 1, 128), (1, 300, 300, 2, 128)]
+CASES = [(1, 256, 256, 2, 64), (2, 200, 328, 1, 128), (1, 300, 300, 2, 128),
+         (1, 256, 200, 2, 256), (2, 200, 328, 1, 512)]
 
 
 def make_qkv(b, lq, lk, h, d, seed):
@@ -56,7 +58,8 @@ def run_both(q, k, v, pv8, block_k):
 
 @pytest.mark.parametrize("b,lq,lk,h,d", CASES)
 @pytest.mark.parametrize("pv8", [False, True], ids=["qk8", "qk8pv8"])
-@pytest.mark.parametrize("block_k", [None, 64, 128], ids=["default", "bk64", "bk128"])
+@pytest.mark.parametrize("block_k", [None, 32, 64, 128],
+                         ids=["default", "bk32", "bk64", "bk128"])
 def test_plain_matches_jax(b, lq, lk, h, d, pv8, block_k):
     q, k, v = make_qkv(b, lq, lk, h, d, seed=lq + d)
     got, want = run_both(q, k, v, pv8, block_k)
@@ -116,9 +119,12 @@ def test_flag_precedence_and_refusals():
     torch.testing.assert_close(
         tfa.flash_attention(tq, tk, tv, qk_int8=True, bounded=True, pipelined=True),
         tfa.flash_attention_bounded_plain(tq, tk, tv))
-    wide = torch.zeros(1, 64, 1, 256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention(wide, wide, wide, qk_int8=True)
+    # Wide heads run (the CUDA kernel takes D = 256 and 512 too), as in JAX.
+    wq, wk, wv = make_qkv(1, 64, 64, 1, 256, seed=2)
+    got = tfa.flash_attention(*(torch.from_numpy(x) for x in (wq, wk, wv)), qk_int8=True)
+    want = np.asarray(jfa.flash_attention(jnp.asarray(wq), jnp.asarray(wk), jnp.asarray(wv),
+                                          interpret=True, qk_int8=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.int8_operands(tq, tk, tv)
 

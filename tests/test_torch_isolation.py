@@ -31,7 +31,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     for mod in ("api", "checkpoint", "pipeline", "models.dit", "models.vae", "models.quant",
                 "models.calibrate", "ops.attention", "ops.flash_attention", "ops.quant_matmul",
                 "ops.cuda_build", "sampling.edm", "parallel.sharding",
-                "parallel.ring_attention", "parallel.flash_sp"):
+                "parallel.ring_attention", "parallel.flash_sp", "envmap", "io",
+                "ops.resample", "utils.cache"):
         assert f"diffusionrenderer_tpu_torch.{mod}" in report["imported"]
 
 
