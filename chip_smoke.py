@@ -11,12 +11,20 @@ Phases (any failure raises and exits non-zero):
   2. build   - build every hand-written CUDA kernel from csrc/ (sm_90a), one
                nvcc per source, all started together, and beside them the
                HDR codec (csrc/*.cc, host compiler, zlib); print ptxas's
-               registers and spills.
+               registers and spills, and the registers, spills, dynamic shared
+               memory and resident blocks per SM of kernels 1, 2 and 5 at
+               D = 128 (5 also at 256) from the CUDA runtime.  Fails on a spill
+               or a serialized wgmma in the wgmma kernels, and if kernel 1 at
+               D = 128 takes more than 169 registers or 69,632 bytes of
+               shared memory (what it took before kernel 2 moved to wgmma).
   3. kernels - the bf16 attention kernels vs their plain PyTorch version:
                the DiT's (5, 1024, 32, 128) with RMS-normed q/k, the forward
                render's (1, 1024|2048, 32, 128), the VAE's D=512 at its encode
                and decode shapes, a ragged length with Lk != Lq, and inputs
-               whose headroom forces the online branch.
+               whose headroom forces the online branch (at D = 128 kernels 1
+               and 2 launch, one per call writes); then kernel 2 alone
+               (bounded=False) at the DiT and forward shapes, ragged lengths at
+               D = 128 and 64 and fewer keys than one tile.
   4. flagship attention (1, 28160, 32, 128): kernel time beside
                F.scaled_dot_product_attention (a yardstick the port never
                calls); output checked against the plain version on 2 heads.
@@ -80,8 +88,15 @@ Phases (any failure raises and exits non-zero):
                outputs and attention launches (28 x 15 + 8 encodes + 1 decode).
   22. forward reference - one forward DiT step through the kernels vs the
                plain attention path, and its profile.
-  23. timings - each bf16 attention kernel, its plain version and the
-               library call at the main path's attention shapes.
+  23. timings - each bf16 attention kernel (kernel 1's bounded call, kernel
+               2's unbounded one), its plain version and the library call at
+               the main path's attention shapes, each with its ratio to the
+               library, by CUDA events and again with every launch queued
+               behind a sleep kernel (the device time alone, where the event
+               time of a small shape reads the host's launch rate); the host
+               cost of a launch (tensor maps encoded per call) and of kernel
+               2's early-exit grid in a bounded call, with that grid's device
+               time from torch.profiler.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -91,6 +106,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -182,6 +198,60 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def profiled_device_ms(fn, reps: int):
+    """The kernels' device time per call of fn() from torch.profiler over
+    reps calls (None when it recorded none).  Used only for kernel 2's
+    early-exit grid, which no event pair can isolate from kernel 1."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum((ev.self_device_time_total if hasattr(ev, "self_device_time_total")
+              else ev.self_cuda_time_total)
+             for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA and not ev.key.startswith("Command Buffer"))
+    return us / 1e3 / reps or None
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of fn() by CUDA events with every launch enqueued
+    before the first runs: a sleep kernel holds the device while the host
+    enqueues, so the host's launch cost does not show."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e7 + 4e5 * reps))  # ~10 ms + 0.2 ms a call at ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call of fn() enqueued back to back (no synchronize
+    inside): the launch cost a host-bound caller pays."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def attention_bound(shape, noshift: bool):
     """(bound_ms, bound_by) of one attention call: q, k, v read and the
     output written once, against 4*B*Lq*Lk*H*D bf16 tensor-core operations
@@ -246,11 +316,22 @@ def device_phase():
     return smi.splitlines()[0]
 
 
+# ptxas reports wgmma.mma_async serialized (the whole function's wgmma then
+# run one at a time) with this phrase.
+SERIALIZED = "wgmma.mma_async instructions are serialized"
+WGMMA_SOURCES = ("flash_attention_wgmma", "flash_attention_int8")
+# Kernel 1's resources at D = 128 before kernel 2 moved to wgmma (169
+# registers, 69,632 bytes): its blocks per SM must not fall.
+KERNEL1_D128_MAX_REGS = 169
+KERNEL1_D128_MAX_SMEM = 69632
+
+
 def build_phase():
     import threading
 
     from diffusionrenderer_tpu_torch import io as tio
     from diffusionrenderer_tpu_torch.ops import cuda_build
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
     # The HDR codec (host C++ compiler, zlib) builds beside the nvcc jobs.
@@ -272,9 +353,30 @@ def build_phase():
         f"(nvcc s: {json.dumps({k: round(v, 1) for k, v in cuda_build.build_seconds.items()})}; "
         f"HDR codec {codec_s[0]:.1f} s)")
     for name in cuda_build.SOURCES:
-        for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+        log = cuda_build.build_log(name)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or SERIALIZED in line:
                 say(f"  ptxas {name}: {line.strip()}")
+        if name in WGMMA_SOURCES:
+            check(SERIALIZED not in log, f"{name}.cu: ptxas serialized the wgmma instructions")
+            spills = [m.group(0) for m in re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+                      if m.group(1) != "0" or m.group(2) != "0"]
+            check(not spills, f"{name}.cu: ptxas reports spills: {spills}")
+    occ = {"kernel1_noshift_d128": fa.kernel_occupancy("noshift", 128),
+           "kernel2_online_d128": fa.kernel_occupancy("online", 128),
+           "kernel2_online_d64": fa.kernel_occupancy("online", 64)}
+    for d in (128, 256):
+        for pv8 in (False, True):
+            occ[f"kernel5_d{d}_{'pv8' if pv8 else 'qk8'}"] = fa.kernel_occupancy("int8", d, pv8)
+    say("occupancy " + json.dumps(occ))
+    k1 = occ["kernel1_noshift_d128"]
+    check(k1["registers"] <= KERNEL1_D128_MAX_REGS
+          and k1["dynamic_smem_bytes"] <= KERNEL1_D128_MAX_SMEM and k1["blocks_per_sm"] >= 2,
+          f"kernel 1 at D = 128 grew past its resources: {k1}")
+    for name, o in occ.items():
+        check(o["spill_bytes"] == 0, f"{name} spills: {o}")
+        check(o["blocks_per_sm"] >= 1, f"{name} does not fit on an SM: {o}")
+    return occ
 
 
 def kernel_case(name, shape, *, rms_normed, q_scale, expect_branch, seed):
@@ -297,11 +399,36 @@ def kernel_case(name, shape, *, rms_normed, q_scale, expect_branch, seed):
     check(ok, f"{name}: kernel disagrees with plain")
     check(stats_err <= 1e-4 * max(1.0, float(fa.headroom_stats_plain(q, k, v).abs().max())),
           f"{name}: headroom stats disagree with plain")
-    check(launches == {"flash_attention": 1, "flash_attention_headroom": 1,
-                        "flash_attention_int8": 0},
+    # D = 64, 128: kernel 1 and the wgmma kernel 2 (one of them writes).
+    check(launches == {"flash_attention": 1, "flash_attention_online": int(shape[4] <= 128),
+                       "flash_attention_headroom": 1, "flash_attention_int8": 0},
           f"{name}: launch counters did not rise by one")
-    check(branches[expect_branch] == 1, f"{name}: expected the {expect_branch} branch")
+    check(branches == {"noshift": int(expect_branch == "noshift"),
+                       "online": int(expect_branch == "online")},
+          f"{name}: expected the {expect_branch} branch, once")
     return err, stats_err
+
+
+def online_case(name, shape, *, q_scale, seed):
+    """Kernel 2 alone (flash_attention(bounded=False)) vs the plain online
+    softmax; returns max |kernel - plain|."""
+    import torch
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = make_qkv(shape, rms_normed=True, q_scale=q_scale, seed=seed)
+    fa.reset_counts()
+    got = fa.flash_attention(q, k, v, bounded=False)
+    torch.cuda.synchronize()
+    launches, branches = dict(fa.LAUNCHES), fa.branch_counts("cuda")
+    err, rel, ok = compare(got, fa.flash_attention_plain(q, k, v, bounded=False))
+    say(f"  online {name} {shape}: max_abs_err {err:.3e}, rel_l2 {rel:.3e}, launches {launches}, "
+        f"branches {branches}")
+    check(ok, f"online {name}: kernel 2 disagrees with plain")
+    wgmma = int(shape[4] <= 128)
+    check(launches == {"flash_attention": 1 - wgmma, "flash_attention_online": wgmma,
+                       "flash_attention_headroom": 0, "flash_attention_int8": 0}
+          and branches == {"noshift": 0, "online": 1}, f"online {name}: launches {launches}")
+    return err
 
 
 def kernels_phase():
@@ -323,7 +450,12 @@ def kernels_phase():
         kernel_case("online_d512", (1, 1000, 1200, 1, 512), rms_normed=False, q_scale=100.0,
                     expect_branch="online", seed=5),
     ]
-    return max(e for e, _ in errs), max(s for _, s in errs)
+    online = [online_case("dit", DIT_SHAPE, q_scale=1.0, seed=12),
+              online_case("forward_dit", FWD_DIT_SHAPE, q_scale=1.0, seed=13),
+              online_case("ragged", (2, 1000, 777, 8, 128), q_scale=30.0, seed=14),
+              online_case("ragged_d64", (3, 777, 1000, 16, 64), q_scale=1.0, seed=15),
+              online_case("short_keys", (2, 300, 40, 8, 128), q_scale=1.0, seed=16)]
+    return max(e for e, _ in errs), max(s for _, s in errs), max(online)
 
 
 def flagship_phase():
@@ -354,6 +486,7 @@ def flagship_phase():
            "online_plain_ms_2_heads": online_plain2, "bound_ms": bound,
            "bound_by": by, "tflops": 4 * b * lq * lk * h * d / kernel / 1e9,
            "max_abs_err_2_heads": err, "rel_l2_2_heads": rel,
+           "vs_library": kernel / library, "online_vs_library": online / library,
            "branches": fa.branch_counts("cuda")}
     say("flagship_attention " + json.dumps(rec))
     check(ok, "flagship: kernel disagrees with plain on 2 heads")
@@ -487,8 +620,9 @@ def fa8_case(name, shape, pv8, seed, rms_normed=True):
     say("  int8 attention " + json.dumps(rec))
     check(ok, f"{name} pv8={pv8}: int8 kernel disagrees with plain")
     check(xla_err <= xla_limit, f"{name} pv8={pv8}: int8 kernel too far from exact")
-    check(launches == {"flash_attention": 0, "flash_attention_headroom": 0,
-                       "flash_attention_int8": 1}, f"{name}: launch counters wrong")
+    check(launches == {"flash_attention": 0, "flash_attention_online": 0,
+                       "flash_attention_headroom": 0, "flash_attention_int8": 1},
+          f"{name}: launch counters wrong")
     return err, rec
 
 
@@ -502,7 +636,10 @@ def fa8_timings(label, shape, *, rms_normed, reps, seed, two_heads=False):
     q, k, v = make_qkv(shape, rms_normed=rms_normed, seed=seed)
     stats = fa.flash_headroom(q, k, v)
     tile = fa.INT8_BLOCK_K[shape[4]]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
     rec = {"shape": list(shape), "library_ms": sdpa_ms(q, k, v, reps),
+           "library_queued_ms": queued_ms(sdpa, reps),
            "bf16_kernel_ms": time_ms(lambda: fa.flash_attention_kernel(q, k, v, stats), reps)}
     for pv8 in (False, True):
         ops = fa.int8_operands(q, k, v, pv_int8=pv8)
@@ -511,6 +648,10 @@ def fa8_timings(label, shape, *, rms_normed, reps, seed, two_heads=False):
         rec[f"{key}_prepass_ms"] = time_ms(lambda: fa.int8_operands(q, k, v, pv_int8=pv8), reps)
         rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = fa8_bound(shape, pv8)
         rec[f"{key}_tops"] = 4 * math.prod(shape) / rec[f"{key}_ms"] / 1e9
+        rec[f"{key}_vs_library"] = rec[f"{key}_ms"] / rec["library_ms"]
+        launch = lambda: fa.flash_attention_int8_launch(ops)  # noqa: E731
+        rec[f"{key}_queued_ms"] = queued_ms(launch, reps)
+        rec[f"{key}_queued_vs_library_queued"] = rec[f"{key}_queued_ms"] / rec["library_queued_ms"]
         if not two_heads:
             rec[f"{key}_plain_ms"] = time_ms(lambda: fa.flash_attention_int8_plain(
                 q, k, v, pv_int8=pv8, block_k=tile), 2, 1)
@@ -531,7 +672,7 @@ def fa8_timings(label, shape, *, rms_normed, reps, seed, two_heads=False):
             del out, q2, k2, v2, want
         del ops
     say(f"  int8 attention timings {label} " + json.dumps(rec))
-    del q, k, v, stats
+    del q, k, v, stats, qt, kt, vt
     torch.cuda.empty_cache()
     return rec
 
@@ -609,6 +750,12 @@ def main_path_phase(label: str = "bf16", **load_kw):
               f"{name}: values not finite in [0, 1]")
     for name in ("flash_attention", "flash_attention_headroom"):
         check(launches[name] == expected, f"{name}: {launches[name]} launches, expected {expected}")
+    # The DiT's D = 128 calls launch kernel 2 beside kernel 1; the VAE's
+    # D = 512 ones hold both branches in one launch.
+    dit_calls = pipe.num_steps * net.num_blocks
+    check(launches["flash_attention_online"] == dit_calls,
+          f"flash_attention_online: {launches['flash_attention_online']} launches, "
+          f"expected {dit_calls}")
     check(launches["flash_attention_int8"] == 0, "int8 attention ran on the main path")
     check(launches["quant_matmul_w8a8"] == expected_qmm,
           f"quant_matmul_w8a8: {launches['quant_matmul_w8a8']} launches, expected {expected_qmm}")
@@ -731,7 +878,7 @@ def profile_phase(params, label: str = "bf16", net=None, inputs=None):
                   else ev.self_cuda_time_total)
         dev_ms = dev_us / 1e3
         name, low = ev.key, ev.key.lower()
-        if "flash_attention_kernel" in name:
+        if any(w in name for w in ("flash_attention_kernel", "flash_wgmma_kernel", "flash_int8")):
             cls = "flash_attention"
         elif "headroom_kernel" in name:
             cls = "headroom"
@@ -853,12 +1000,34 @@ def prepass_per_forward(qmm_recs):
     return get_inverse_renderer_config(512, 512, 1).net.num_blocks * per_block
 
 
-def kernel_records(main_rec, max_err, max_stats_err, quant, var):
-    """Per-kernel numbers at the main path's shapes.  `quant` carries the
-    int8 kernels' numbers from phases 5, 6, 10 and 12, `var` kernels 3, 6
-    and 7's from phases 14 to 18."""
+def online_exit_launch(q, k, v, stats):
+    """Kernel 2's launch alone as a bounded call makes it (it exits when the
+    rule says no-shift), through the library the wrapper calls."""
     import torch
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    b, lq, h, d = q.shape
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), stats.data_ptr(),
+            fa._tally(q.device).data_ptr(), b, lq, k.shape[1], h, d,
+            fa._q_scale_value(d, q.dtype), math.log2(fa.reference_lk_pad(k.shape[1], d)), 1,
+            fa._stream(q.device))
+    lib = fa._lib_wgmma()
+
+    def launch():
+        return lib.drt_flash_online(*args), out  # out lives as long as the closure
+
+    return launch
+
+
+def kernel_records(main_rec, errs, quant, var, occ):
+    """Per-kernel numbers at the main path's shapes.  `errs` = phase 3's
+    (kernel 1 / bounded call, headroom stats, kernel 2 alone) errors, `quant`
+    carries the int8 kernels' numbers from phases 5, 6, 10 and 12, `var`
+    kernels 3, 6 and 7's from phases 14 to 18, `occ` phase 2's occupancy."""
+    import torch
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    import torch.nn.functional as F
 
     attn_shapes, head_shapes = [], []
     for shape, normed in ((DIT_SHAPE, True), (VAE_ENC_SHAPE, False), (VAE_DEC_SHAPE, False),
@@ -868,39 +1037,84 @@ def kernel_records(main_rec, max_err, max_stats_err, quant, var):
         noshift = bool(fa.use_noshift(stats, shape[0] * shape[3], shape[2], shape[4]))
         reps = 5 if shape[4] == 512 else 20
         bound, by = attention_bound(shape, noshift)
-        attn_shapes.append({
-            "shape": list(shape), "branch": "noshift" if noshift else "online",
-            "ms": time_ms(lambda: fa.flash_attention_kernel(q, k, v, stats), reps),
-            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v), 2, warmup=1),
-            "library_ms": sdpa_ms(q, k, v, reps), "bound_ms": bound, "bound_by": by,
-            # The online branch on the same inputs (stats=None forces it).
-            "online_ms": time_ms(lambda: fa.flash_attention_kernel(q, k, v, None), reps),
-            "online_plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, bounded=False),
-                                       2, warmup=1),
-            "online_bound_ms": attention_bound(shape, noshift=False)[0]})
+        call = lambda: fa.flash_attention_kernel(q, k, v, stats)  # noqa: E731
+        online = lambda: fa.flash_attention_kernel(q, k, v, None)  # noqa: E731
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+        rec = {"shape": list(shape), "branch": "noshift" if noshift else "online",
+               "ms": time_ms(call, reps),
+               "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v), 2, warmup=1),
+               "library_ms": sdpa_ms(q, k, v, reps), "bound_ms": bound, "bound_by": by,
+               # The online branch on the same inputs (stats=None forces it).
+               "online_ms": time_ms(online, reps),
+               "online_plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, bounded=False),
+                                          2, warmup=1),
+               "online_bound_ms": attention_bound(shape, noshift=False)[0],
+               # The same, timed with the launches queued ahead: event times
+               # of the small shapes read the host's launch rate.
+               "queued_ms": queued_ms(call, reps), "online_queued_ms": queued_ms(online, reps),
+               "library_queued_ms": queued_ms(sdpa, reps)}
+        rec["vs_library"] = rec["ms"] / rec["library_ms"]
+        rec["online_vs_library"] = rec["online_ms"] / rec["library_ms"]
+        rec["queued_vs_library_queued"] = rec["queued_ms"] / rec["library_queued_ms"]
+        rec["online_queued_vs_library_queued"] = (rec["online_queued_ms"]
+                                                  / rec["library_queued_ms"])
+        if shape[4] <= 128:
+            # The two-launch branch: kernel 2's grid in a bounded call that
+            # kernel 1 serves, its device time and the host time of its launch.
+            exit_launch = online_exit_launch(q, k, v, stats)
+            rec["online_exit_device_ms"] = profiled_device_ms(exit_launch, reps)
+            rec["online_exit_host_us"] = host_us(exit_launch)
+            rec["call_host_us"] = host_us(call)
+            rec["online_call_host_us"] = host_us(online)
+        attn_shapes.append(rec)
         hbound, hby = headroom_bound(shape)
         head_shapes.append({
             "shape": list(shape),
             "ms": time_ms(lambda: fa.flash_headroom(q, k, v), reps),
             "plain_ms": time_ms(lambda: fa.headroom_stats_plain(q, k, v), 2, warmup=1),
             "library_ms": None, "bound_ms": hbound, "bound_by": hby})
-        del q, k, v, stats
+        say(f"  attention timings {shape} " + json.dumps(rec))
+        del q, k, v, stats, qt, kt, vt
         torch.cuda.empty_cache()
     src = "diffusionrenderer_tpu_torch/csrc/flash_attention.cu"
     main = main_rec["launches"]
+    dit = attn_shapes[0]
+    online_keys = ("online_ms", "online_plain_ms", "online_bound_ms", "library_ms",
+                   "online_vs_library", "online_queued_ms", "library_queued_ms",
+                   "online_queued_vs_library_queued")
     return [
         {"name": "flash_attention", "route": "cuda", "source": src,
-         "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:185 (_flash_kernel_noshift) "
-                     "and :58 (_flash_kernel)",
+         "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:185 (_flash_kernel_noshift); "
+                     "at D = 256 and 512 also :58 (_flash_kernel)",
          "launches": main["flash_attention"], "launches_by_branch": main_rec["branches"],
-         "max_abs_err": max_err, **attn_shapes[0], "main_path_shapes": attn_shapes},
+         "max_abs_err": errs[0], **dit, "occupancy_d128": occ["kernel1_noshift_d128"],
+         "main_path_shapes": attn_shapes},
+        {"name": "flash_attention_online", "route": "cuda",
+         "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu",
+         "source_d256_d512": src + " attend<D, kOnline>",
+         "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:58 (_flash_kernel, "
+                     "_flash_kernel_nobias :116; pallas_call :478, :675)",
+         "launches": main["flash_attention_online"],
+         "launches_note": "one per DiT attention call beside kernel 1; its blocks exit when "
+                          "the headroom rule picks no-shift (branch tally: main_path branches)",
+         "max_abs_err": max(errs[0], errs[2]), "shape": dit["shape"],
+         "ms": dit["online_ms"], "plain_ms": dit["online_plain_ms"],
+         "bound_ms": dit["online_bound_ms"], "bound_by": "operations",
+         "library_ms": dit["library_ms"], "library": "F.scaled_dot_product_attention bf16",
+         "occupancy_d128": occ["kernel2_online_d128"],
+         "main_path_shapes": [{"shape": r["shape"], **{k_: r[k_] for k_ in online_keys},
+                               **{k_: r[k_] for k_ in ("online_exit_device_ms",
+                                                       "online_exit_host_us", "call_host_us",
+                                                       "online_call_host_us") if k_ in r}}
+                              for r in attn_shapes]},
         {"name": "flash_attention_headroom", "route": "cuda", "source": src,
          "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:488 (the headroom rule "
                      "_bounded_cond_call evaluates before its lax.cond; bound at :559)",
-         "launches": main["flash_attention_headroom"], "max_abs_err": max_stats_err,
+         "launches": main["flash_attention_headroom"], "max_abs_err": errs[1],
          **head_shapes[0], "main_path_shapes": head_shapes},
         w8a8_record(quant),
-        int8_attention_record(quant),
+        int8_attention_record(quant, occ),
         *variant_records(var),
     ]
 
@@ -925,7 +1139,7 @@ def w8a8_record(quant):
             "prepass_ms_per_dit_forward": quant["prepass_ms_per_forward"]}
 
 
-def int8_attention_record(quant):
+def int8_attention_record(quant, occ):
     """Kernel 5 at the DiT shape, int8 QK^T + PV (attn_backend
     'pallas_pv_int8'); qk8 and the flagship shape beside it."""
     dit = quant["fa8_timings"]["dit"]
@@ -937,7 +1151,8 @@ def int8_attention_record(quant):
             "plain_ms": dit["pv8_plain_ms"], "bound_ms": dit["pv8_bound_ms"],
             "bound_by": dit["pv8_bound_by"], "library_ms": dit["library_ms"],
             "library": "F.scaled_dot_product_attention bf16", "shape": list(DIT_SHAPE),
-            "prepass_ms": dit["pv8_prepass_ms"], "timings": quant["fa8_timings"]}
+            "prepass_ms": dit["pv8_prepass_ms"], "timings": quant["fa8_timings"],
+            "occupancy": {k: v for k, v in occ.items() if k.startswith("kernel5")}}
 
 
 # ---------------------------------------------------------------------------
@@ -997,7 +1212,8 @@ def variant_case(name, shape, *, rms_normed, seed):
     say("  variants " + json.dumps(rec))
     check(all(oks), f"{name}: kernel 3 or 7 disagrees with its plain version")
     check(rec["kernel6_bitwise_kernel7"], f"{name}: kernel 6 is not bitwise equal to kernel 7")
-    check(launches == {"flash_attention": 0, "flash_attention_headroom": 0,
+    check(launches == {"flash_attention": 0, "flash_attention_online": 0,
+                       "flash_attention_headroom": 0,
                        "flash_attention_int8": 0, "flash_attention_partial": 1,
                        "flash_attention_bounded_pipe": 1, "flash_attention_bounded": 1},
           f"{name}: launch counters wrong")
@@ -1133,7 +1349,8 @@ def sharded_forward_phase(pipe, mesh):
     check(ring_launches == net.num_blocks, f"ring forward: {ring_launches} kernel-3 launches")
     check(rec["finite"], "sharded forward: non-finite output")
     check(rec["ring_vs_unsharded_rel_l2"] <= 2e-2, "ring forward vs unsharded kernel path")
-    check(sp_launches["flash_attention"] == net.num_blocks
+    check(sp_launches["flash_attention_online"] == net.num_blocks
+          and sp_launches["flash_attention"] == 0
           and sp_launches["flash_attention_headroom"] == 0
           and sp_branches == {"noshift": 0, "online": net.num_blocks},
           f"flash_sp forward: launches {sp_launches}, branches {sp_branches}")
@@ -1324,8 +1541,8 @@ def wide_int8_phase():
                 q, k, v, pv_int8=True, block_k=fa.INT8_BLOCK_K[d]))
             say(f"  attention(backend='pallas_pv_int8') {shape}: launches {launches}, "
                 f"max_abs_err {err:.3e}, rel_l2 {rel:.3e}")
-            check(launches == {"flash_attention": 0, "flash_attention_headroom": 0,
-                               "flash_attention_int8": 1},
+            check(launches == {"flash_attention": 0, "flash_attention_online": 0,
+                               "flash_attention_headroom": 0, "flash_attention_int8": 1},
                   f"pallas_pv_int8 at D={d}: launches {launches}, expected one of kernel 5")
             check(ok and bool(torch.isfinite(out).all()),
                   f"pallas_pv_int8 at D={d}: disagrees with the plain version")
@@ -1433,7 +1650,7 @@ def forward_gbuffers(frames: int, seed: int):
     return [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(5)]
 
 
-def forward_call(pipe, gbuf, env, frames: int, expected: int, label: str):
+def forward_call(pipe, gbuf, env, frames: int, expected: int, dit_calls: int, label: str):
     """One forward_render with the counts set to 0 just before it and read
     just after; checks the output and the launches."""
     import numpy as np
@@ -1461,8 +1678,11 @@ def forward_call(pipe, gbuf, env, frames: int, expected: int, label: str):
     for name in ("flash_attention", "flash_attention_headroom"):
         check(launches[name] == expected,
               f"forward {label}: {name} {launches[name]} launches, expected {expected}")
-    check(sum(v for k, v in launches.items() if k not in ("flash_attention",
-                                                        "flash_attention_headroom")) == 0,
+    check(launches["flash_attention_online"] == dit_calls,
+          f"forward {label}: kernel 2 launched {launches['flash_attention_online']} times, "
+          f"expected {dit_calls}")
+    check(sum(v for k, v in launches.items() if k not in (
+        "flash_attention", "flash_attention_online", "flash_attention_headroom")) == 0,
           f"forward {label}: other kernels launched {launches}")
     check(branches["noshift"] + branches["online"] == expected,
           f"forward {label}: branch counts do not add up")
@@ -1500,9 +1720,11 @@ def forward_path_phase(env_path: str):
     # in the one decode.
     expected = pipe.num_steps * net.num_blocks + len(cfg.condition_keys) + 1
     gbuf = forward_gbuffers(1, seed=62)
-    rec["first"] = forward_call(pipe, gbuf, env, 1, expected, "first")
-    rec["warm"] = forward_call(pipe, gbuf, env, 1, expected, "warm")
-    rec["frames_9"] = forward_call(pipe, forward_gbuffers(9, seed=63), env, 9, expected, "9_frames")
+    dit_calls = pipe.num_steps * net.num_blocks
+    rec["first"] = forward_call(pipe, gbuf, env, 1, expected, dit_calls, "first")
+    rec["warm"] = forward_call(pipe, gbuf, env, 1, expected, dit_calls, "warm")
+    rec["frames_9"] = forward_call(pipe, forward_gbuffers(9, seed=63), env, 9, expected, dit_calls,
+                                   "9_frames")
     say("main_path_forward " + json.dumps({k: v for k, v in rec.items()
                                            if k not in ("first", "warm", "frames_9")}))
     return pipe, rec
@@ -1549,7 +1771,6 @@ def forward_reference_phase(pipe):
     return rec
 
 
-
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "diffusionrenderer_tpu_torch")):
         print("chip_smoke.py runs from the root of a checkout: the package "
@@ -1566,9 +1787,9 @@ def main() -> int:
     t = phase("1 device")
     card = device_phase()
     t = phase("2 build")
-    build_phase()
+    occ = build_phase()
     t = phase("3 kernels vs plain")
-    max_err, max_stats_err = kernels_phase()
+    errs = kernels_phase()
     say(f"  phase 3: {time.perf_counter() - t:.1f} s")
     t = phase("4 flagship attention")
     flagship_phase()
@@ -1655,9 +1876,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     say(f"  phase 22: {time.perf_counter() - t:.1f} s")
     t = phase("23 kernel timings at the main path's shapes")
-    records = kernel_records(main_rec, max_err, max_stats_err, quant, var)
-    records[0]["launches_forward_render"] = fwd["first"]["launches"]["flash_attention"]
-    records[1]["launches_forward_render"] = fwd["first"]["launches"]["flash_attention_headroom"]
+    records = kernel_records(main_rec, errs, quant, var, occ)
+    for rec, name in zip(records[:3], ("flash_attention", "flash_attention_online",
+                                       "flash_attention_headroom")):
+        rec["launches_forward_render"] = fwd["first"]["launches"][name]
+    records[1]["launches_by_branch_forward_render"] = fwd["first"]["branches"]
     records += wide_int8_records(wide)
     say(f"  phase 23: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
     say(card)  # again here: the end of a long log is what survives

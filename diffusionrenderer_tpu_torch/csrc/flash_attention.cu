@@ -15,12 +15,17 @@
 //   * _flash_kernel_bounded_pipe (:262-314, flash_attention(bounded=True,
 //     pipelined=True)) - the same function with the score tile carried one key
 //     tile ahead (kernel 6, flash_bounded_kernel<D, true>).
-// All are one templated body (attend<D, Mode>).  Kernels 1 and 2 are one launch:
-// the branch is chosen on the device, without a host sync: headroom_kernel
-// reduces the bound (max ||q_i|| * max ||k_j|| per (b, h)) and max |v| into a
-// small stats buffer, and every block of flash_attention_kernel reads the same
-// buffer and so takes the same branch.  Kernels 3, 6 and 7 are launches of
-// their own, with no headroom launch and no branch tally.
+// All are one templated body (attend<D, Mode>).  The no-shift / online branch
+// is chosen on the device, without a host sync: headroom_kernel reduces the
+// bound (max ||q_i|| * max ||k_j|| per (b, h)) and max |v| into a small stats
+// buffer, and every block of every launch evaluates the rule on it
+// (headroom_rule.cuh), so all take the same branch.  At D = 256 and 512
+// kernels 1 and 2 are one launch (flash_attention_kernel<D>); at D = 64 and
+// 128 this file's launch is kernel 1 alone (online_elsewhere: it exits when
+// the rule says online) and kernel 2 is the wgmma kernel of
+// flash_attention_wgmma.cu, launched beside it on the same stats (it exits
+// when the rule says no-shift).  Kernels 3, 6 and 7 are launches of their own, with no headroom
+// launch and no branch tally.
 //
 // What bounds them on an H100: 4*Lq*Lk*H*D matmul operations against (Lq + 2 Lk)
 // *H*D*2 bytes, so at the DiT's D=128 they are tensor-core bound (13 TFLOP at
@@ -37,7 +42,8 @@
 //     warps: each warp forms the partial S of its D slice, the slices are
 //     summed in shared memory in a fixed order, and each warp accumulates PV
 //     for its own D slice, so the fp32 accumulator fits in registers.
-// wgmma, TMA and warp specialisation are left for later work.
+// wgmma, TMA and warp specialisation for these modes are later work; kernel 2
+// at D <= 128 already has them (flash_attention_wgmma.cu).
 //
 // Rounding points follow the JAX kernels: q is pre-scaled by the bf16-rounded
 // softmax_scale*log2(e) and rounded back to bf16; P is cast to bf16 before PV;
@@ -47,12 +53,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "headroom_rule.cuh"
+
 namespace {
+
+using rule::nan_max;
+using rule::warp_max;
 
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;      // the JAX kernels' padded-key bias
-constexpr float kHeadroomLimit = 120.f;
 constexpr int kUnsupportedHeadDim = 10000;
+constexpr int kOnlineElsewhere = 10001;  // D <= 128, unbounded: the wgmma kernel's call
 
 template <int D> struct Tile;
 // WD: warps splitting the head dim; BK: keys per shared-memory tile.
@@ -86,6 +97,7 @@ struct AttnArgs {
   float q_scale;        // softmax_scale * log2(e), rounded to bf16
   float log2_lk_pad;
   int bounded;
+  int online_elsewhere; // the online branch is flash_attention_wgmma.cu's launch
   const float* mb;      // (B, H, Lq) row bound of the bounded modes
   float* m_out;         // (B, H, Lq) running max and normalizer of kPartial
   float* l_out;
@@ -143,21 +155,9 @@ __device__ __forceinline__ uint32_t load_q_pair(const __nv_bfloat16* p, bool val
   return pack_bf16(__bfloat162float(x.x) * qs, __bfloat162float(x.y) * qs);
 }
 
-// max that propagates NaN (fmaxf drops it), so a NaN input selects the online
-// branch as jnp.max + lax.cond do.
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = nan_max(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
@@ -515,38 +515,25 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
   }
 }
 
+// Kernels 1 and 2 in one launch, or, with online_elsewhere (D = 64, 128),
+// kernel 1 alone: it does nothing when the rule says online.  Block
+// (0, 0, 0) tallies the branch.  At D = 64, 128 the kOnline body below is
+// compiled but never runs.  It stays only because, on the H100, this
+// function's no-shift path measured faster than an instantiation with the
+// no-shift body alone, at the same three blocks per SM; the cause was not
+// read from the SASS.  When kernel 1 moves onto the wgmma body, delete
+// online_elsewhere, kOnlineElsewhere and kernel 2's exit grid together.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(AttnArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int noshift;
-  __shared__ float warp_mb[kThreads / 32];
-  // The headroom rule of _bounded_cond_call: the unshifted exp2(s), its row
-  // sum and the PV accumulator all stay finite in fp32.  Every block reduces
-  // the same stats (all threads, a few loads each), so the branch is
-  // uniform across the grid.
-  float mb = 0.f;
-  if (p.bounded) {
-    const int n = p.B * p.H;
-    for (int i = threadIdx.x; i < n; i += kThreads) mb = nan_max(mb, p.stats[i] * p.stats[n + i]);
-    mb = warp_max(mb);
-  }
-  if ((threadIdx.x & 31) == 0) warp_mb[threadIdx.x >> 5] = mb;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int ns = 0;
-    if (p.bounded) {
-      for (int w = 1; w < kThreads / 32; ++w) mb = nan_max(mb, warp_mb[w]);
-      const float vmax = p.stats[2 * p.B * p.H];
-      const float headroom = mb + p.log2_lk_pad + log2f(nan_max(vmax, 1e-30f));
-      ns = headroom < kHeadroomLimit;  // false for NaN
-    }
-    noshift = ns;
-    if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) atomicAdd(p.tally + (ns ? 0 : 1), 1);
-  }
-  __syncthreads();
+  __shared__ float rule_scratch[kThreads / 32 + 1];
+  const int noshift =
+      p.bounded ? rule::block_noshift<kThreads>(p.stats, p.B * p.H, p.log2_lk_pad, rule_scratch) : 0;
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
+    atomicAdd(p.tally + (noshift ? 0 : 1), 1);
   if (noshift)
     attend<D, kNoShift>(p, smem);
-  else
+  else if (!p.online_elsewhere)
     attend<D, kOnline>(p, smem);
 }
 
@@ -598,6 +585,7 @@ extern "C" {
 
 const char* drt_error_string(int code) {
   if (code == kUnsupportedHeadDim) return "unsupported head dim (take 64, 128, 256 or 512)";
+  if (code == kOnlineElsewhere) return "at head dim 64 or 128 the online softmax is flash_attention_wgmma's";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
@@ -633,6 +621,9 @@ int drt_flash_attention(const void* q, const void* k, const void* v, void* o, co
   a.log2_lk_pad = log2_lk_pad;
   a.bounded = bounded;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // At D = 64 and 128 only the bounded call launches here, for kernel 1.
+  a.online_elsewhere = D <= 128;
+  if (a.online_elsewhere && !bounded) return kOnlineElsewhere;
   switch (D) {
     case 64: return launch<64>(flash_attention_kernel<64>, a, st);
     case 128: return launch<128>(flash_attention_kernel<128>, a, st);
@@ -640,6 +631,32 @@ int drt_flash_attention(const void* q, const void* k, const void* v, void* o, co
     case 512: return launch<512>(flash_attention_kernel<512>, a, st);
     default: return kUnsupportedHeadDim;
   }
+}
+
+// Kernel 1's launch at head dim D: out = {registers, local (spill) bytes,
+// dynamic shared bytes, resident blocks per SM, threads per block}.
+int drt_flash_occupancy(int D, int* out) {
+  const void* fn;
+  size_t smem;
+  switch (D) {
+    case 64: fn = (const void*)flash_attention_kernel<64>; smem = Cfg<64>::smem_bytes; break;
+    case 128: fn = (const void*)flash_attention_kernel<128>; smem = Cfg<128>::smem_bytes; break;
+    case 256: fn = (const void*)flash_attention_kernel<256>; smem = Cfg<256>::smem_bytes; break;
+    case 512: fn = (const void*)flash_attention_kernel<512>; smem = Cfg<512>::smem_bytes; break;
+    default: return kUnsupportedHeadDim;
+  }
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+  if (e != cudaSuccess) return e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  out[4] = kThreads;
+  return 0;
 }
 
 // m, l: fp32 (B, H, Lq), written for every query row.

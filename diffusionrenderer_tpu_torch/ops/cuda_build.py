@@ -2,8 +2,8 @@
 
 Each source in `csrc/` becomes its own shared library with a plain C
 interface, compiled by `nvcc` for `sm_90a` into
-`build/torch_kernels/<hash of that source and the flags>/`, so editing one
-source rebuilds only that one.  `build_all()` starts one `nvcc` per source,
+`build/torch_kernels/<hash of that source, the shared headers and the
+flags>/`, so editing one source rebuilds only that one.  `build_all()` starts one `nvcc` per source,
 all together, and waits for them.  Nothing here runs at import time: the CPU
 tests import every module and have no `nvcc`.
 """
@@ -20,7 +20,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("flash_attention", "quant_matmul", "flash_attention_int8")
+SOURCES = ("flash_attention", "quant_matmul", "flash_attention_int8", "flash_attention_wgmma")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,6 +54,8 @@ def _source(name: str) -> Path:
 def _build_dir(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(_source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # included by some sources
+        h.update(header.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of diffusionrenderer_tpu/ops/flash_attention.py
 (`flash_attention(bounded=..., qk_int8=..., pv_int8=...)`).  The kernels are
-in `csrc/flash_attention.cu` (bf16) and `csrc/flash_attention_int8.cu`;
-this module holds
+in `csrc/flash_attention.cu` (bf16, mma.sync), `csrc/flash_attention_wgmma.cu`
+(kernel 2, the online softmax, on wgmma and TMA at head dims 64 and 128) and
+`csrc/flash_attention_int8.cu`; this module holds
 
 * `flash_attention` - the entry point, with the JAX package's signature and
   defaults: the plain versions for CPU tensors, the kernels for CUDA tensors
@@ -28,9 +29,12 @@ this module holds
   `flash_attention_bounded_plain`).  As in JAX, no dispatcher route reaches
   the first: it is called by name.
 
-`LAUNCHES` counts the launches of kernels 1, 2 (one launch, with its
-headroom launch) and 5; `VARIANT_LAUNCHES` those of kernels 3, 6 and 7,
-which take no headroom launch and no branch tally.
+`LAUNCHES` counts the launches of the headroom kernel, of
+`flash_attention.cu`'s attention kernel ("flash_attention": kernel 1, and
+at D = 256 and 512 kernels 1 and 2 in one launch), of the wgmma kernel 2
+("flash_attention_online", D = 64 and 128) and of kernel 5;
+`VARIANT_LAUNCHES` those of kernels 3, 6 and 7, which take no headroom
+launch and no branch tally.
 
 The branch rule is that of the JAX package (_bounded_cond_call): with q
 pre-scaled by softmax_scale*log2(e) and the row bound m_i = ||q_i|| * max_j
@@ -40,14 +44,18 @@ pre-scaled by softmax_scale*log2(e) and the row bound m_i = ||q_i|| * max_j
 
 and the online softmax otherwise.  Lk_pad is the padded key length of the
 JAX kernel's own tiling, so both packages pick the same branch for the
-same inputs.  On the card the kernel evaluates the rule itself from the
+same inputs.  On the card the kernels evaluate the rule themselves from the
 stats buffer that `flash_headroom` fills, so no call waits for the host;
-which branch ran is counted on the device, by launch (`branch_counts`).
+which branch ran is counted on the device, one per call (`branch_counts`).
+At D = 64 and 128 a bounded call launches kernel 1 and kernel 2 one after
+the other on the stream, each doing nothing when the rule picks the other;
+an unbounded call launches kernel 2 alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, NamedTuple, Optional
 
@@ -59,18 +67,21 @@ _LOG2_127 = math.log2(127.0)
 _NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256, 512)
 # Keys per tile of the int8 kernel at each head dim it takes
-# (csrc/flash_attention_int8.cu Tile<D>::BK).
+# (csrc/flash_attention_int8.cu, drt_flash_int8_block_k).
 INT8_BLOCK_K = {64: 64, 128: 64, 256: 64, 512: 32}
+# Head dims at which kernel 2 is the wgmma kernel (csrc/flash_attention_wgmma.cu).
+WGMMA_HEAD_DIMS = (64, 128)
 _JAX_DEFAULT_BLOCK_K = 2816  # diffusionrenderer_tpu/ops/flash_attention.py DEFAULT_BLOCK_K
 
 # Launches of each kernel since the last reset_counts(), counted by its wrapper.
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_headroom": 0,
-                            "flash_attention_int8": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_online": 0,
+                            "flash_attention_headroom": 0, "flash_attention_int8": 0}
 VARIANT_LAUNCHES: Dict[str, int] = {"flash_attention_partial": 0,
                                     "flash_attention_bounded_pipe": 0,
                                     "flash_attention_bounded": 0}
-# Per device, int32[2]: how many attention launches took the no-shift and the
-# online branch, counted on the device by block (0, 0, 0) of each launch.
+# Per device, int32[2]: how many bf16 attention calls took the no-shift and
+# the online branch, counted on the device by block (0, 0, 0) of the launch
+# that evaluates the rule (kernel 1's, or kernel 2's in an unbounded call).
 _tallies: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -128,6 +139,13 @@ def _q_scale(d: int, dtype: torch.dtype) -> torch.Tensor:
     # softmax_scale * log2(e) rounded to the activation dtype first, as the
     # JAX wrapper's weakly-typed multiply does.
     return torch.tensor(1.0 / math.sqrt(d) * _LOG2E, dtype=dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _q_scale_value(d: int, dtype: torch.dtype) -> float:
+    """_q_scale as a Python float, for the kernels' arguments (cached: the
+    launch wrappers run on the host-bound path)."""
+    return float(_q_scale(d, dtype))
 
 
 def q_prescale(q: torch.Tensor) -> torch.Tensor:
@@ -304,8 +322,30 @@ def _lib() -> ctypes.CDLL:
         lib.drt_flash_attention_bounded.restype = i32
         lib.drt_error_string.argtypes = [i32]
         lib.drt_error_string.restype = ctypes.c_char_p
+        lib.drt_flash_occupancy.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.drt_flash_occupancy.restype = i32
         _lib_handle = lib
     return _lib_handle
+
+
+_wgmma_handle: Optional[ctypes.CDLL] = None
+
+
+def _lib_wgmma() -> ctypes.CDLL:
+    global _wgmma_handle
+    if _wgmma_handle is None:
+        from .cuda_build import library
+
+        lib = library("flash_attention_wgmma")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.drt_flash_online.argtypes = [ptr] * 6 + [i32] * 5 + [f32, f32, i32, ptr]
+        lib.drt_flash_online.restype = i32
+        lib.drt_flash_wgmma_error_string.argtypes = [i32]
+        lib.drt_flash_wgmma_error_string.restype = ctypes.c_char_p
+        lib.drt_flash_online_occupancy.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.drt_flash_online_occupancy.restype = i32
+        _wgmma_handle = lib
+    return _wgmma_handle
 
 
 _int8_handle: Optional[ctypes.CDLL] = None
@@ -324,9 +364,11 @@ def _lib_int8() -> ctypes.CDLL:
         lib.drt_flash_int8_error_string.restype = ctypes.c_char_p
         lib.drt_flash_int8_block_k.argtypes = [i32]
         lib.drt_flash_int8_block_k.restype = i32
+        lib.drt_flash_int8_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
+        lib.drt_flash_int8_occupancy.restype = i32
         for d, bk in INT8_BLOCK_K.items():
             if lib.drt_flash_int8_block_k(d) != bk:
-                raise RuntimeError(f"csrc/flash_attention_int8.cu Tile<{d}>::BK != "
+                raise RuntimeError(f"csrc/flash_attention_int8.cu's key tile at D={d} != "
                                    f"INT8_BLOCK_K[{d}]")
         _int8_handle = lib
     return _int8_handle
@@ -345,13 +387,22 @@ def _check_kernel_inputs(q, k, v) -> None:
             raise ValueError("q, k and v must lie on one device")
         if x.dtype != torch.bfloat16:
             raise TypeError(f"{name} is {x.dtype}: the kernel takes bfloat16")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        _check_tma_operand(name, x)
     b, lq, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if lq < 1 or k.shape[1] < 1 or not 1 <= b <= 65535 or not 1 <= h <= 65535:
         raise ValueError(f"unsupported sizes q{tuple(q.shape)} k{tuple(k.shape)}")
+
+
+def _check_tma_operand(name: str, x: torch.Tensor) -> None:
+    """What a TMA tensor map needs of an operand the kernel reads through
+    one: contiguous, the base 16-byte aligned, every stride but the last a
+    multiple of 16 bytes."""
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if any(st * x.element_size() % 16 for st in x.stride()[:-1]):
+        raise ValueError(f"{name}'s strides {x.stride()} are not multiples of 16 bytes")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -372,7 +423,7 @@ def flash_headroom(q, k, v) -> torch.Tensor:
     with torch.cuda.device(q.device):
         err = _lib().drt_flash_headroom(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), stats.data_ptr(),
-            b, lq, k.shape[1], h, d, float(_q_scale(d, q.dtype)),
+            b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype),
             _stream(q.device))
     _raise_on(err, "flash_headroom")
     LAUNCHES["flash_attention_headroom"] += 1
@@ -380,25 +431,56 @@ def flash_headroom(q, k, v) -> torch.Tensor:
 
 
 def flash_attention_kernel(q, k, v, stats: Optional[torch.Tensor]) -> torch.Tensor:
-    """Launch the attention kernel.  stats (from flash_headroom) lets the
-    kernel choose the branch on the device; None forces the online branch."""
+    """Launch the bf16 attention.  stats (from flash_headroom) lets the
+    kernels choose the branch on the device; None forces the online branch.
+    D = 64, 128: a bounded call launches kernel 1 and then kernel 2 (the
+    wgmma kernel), each exiting when the rule picks the other; an unbounded
+    one launches kernel 2 alone.  D = 256, 512: one launch holds both."""
     _check_kernel_inputs(q, k, v)
     b, lq, h, d = q.shape
     if stats is not None and (stats.device != q.device or stats.dtype != torch.float32
                               or stats.numel() != 2 * b * h + 1):
         raise ValueError("stats must be flash_headroom's output for these inputs")
     out = torch.empty_like(q)
-    tally = _tally(q.device)
-    with torch.cuda.device(q.device):
-        err = _lib().drt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if stats is None else stats.data_ptr(), tally.data_ptr(),
-            b, lq, k.shape[1], h, d, float(_q_scale(d, q.dtype)),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if stats is None else stats.data_ptr(), _tally(q.device).data_ptr(),
+            b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype),
             math.log2(reference_lk_pad(k.shape[1], d)), int(stats is not None),
             _stream(q.device))
-    _raise_on(err, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    with torch.cuda.device(q.device):
+        if stats is not None or d not in WGMMA_HEAD_DIMS:
+            _raise_on(_lib().drt_flash_attention(*args), "flash_attention")
+            LAUNCHES["flash_attention"] += 1
+        if d in WGMMA_HEAD_DIMS:
+            err = _lib_wgmma().drt_flash_online(*args)
+            if err != 0:
+                msg = _lib_wgmma().drt_flash_wgmma_error_string(err).decode()
+                raise RuntimeError(f"flash_attention_online failed to launch: {msg} (code {err})")
+            LAUNCHES["flash_attention_online"] += 1
     return out
+
+
+def kernel_occupancy(kernel: str, d: int, pv_int8: bool = False) -> Dict[str, int]:
+    """What the CUDA runtime reports for one kernel at head dim d: registers
+    a thread, local (spill) bytes, dynamic shared bytes, resident blocks
+    per SM and threads per block.  kernel: 'noshift' (kernel 1's launch), 'online' (the wgmma
+    kernel 2) or 'int8' (kernel 5, pv_int8 selecting its mode)."""
+    out = (ctypes.c_int * 5)()
+    if kernel == "noshift":
+        lib = _lib()
+        err, why = lib.drt_flash_occupancy(d, out), lib.drt_error_string
+    elif kernel == "online":
+        lib = _lib_wgmma()
+        err, why = lib.drt_flash_online_occupancy(d, out), lib.drt_flash_wgmma_error_string
+    elif kernel == "int8":
+        lib = _lib_int8()
+        err, why = lib.drt_flash_int8_occupancy(d, int(pv_int8), out), lib.drt_flash_int8_error_string
+    else:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    if err != 0:
+        raise RuntimeError(f"occupancy of {kernel} at D={d}: {why(err).decode()} (code {err})")
+    return dict(zip(("registers", "spill_bytes", "dynamic_smem_bytes", "blocks_per_sm",
+                     "threads_per_block"), out))
 
 
 def flash_attention_partial_kernel(q, k, v):
@@ -411,7 +493,7 @@ def flash_attention_partial_kernel(q, k, v):
     with torch.cuda.device(q.device):
         err = _lib().drt_flash_attention_partial(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m.data_ptr(),
-            l.data_ptr(), b, lq, k.shape[1], h, d, float(_q_scale(d, q.dtype)),
+            l.data_ptr(), b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype),
             _stream(q.device))
     _raise_on(err, "flash_attention_partial")
     VARIANT_LAUNCHES["flash_attention_partial"] += 1
@@ -430,7 +512,7 @@ def flash_attention_bounded_kernel(q, k, v, mb: torch.Tensor, *, pipelined: bool
     with torch.cuda.device(q.device):
         err = _lib().drt_flash_attention_bounded(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), mb.data_ptr(),
-            b, lq, k.shape[1], h, d, float(_q_scale(d, q.dtype)), int(pipelined),
+            b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype), int(pipelined),
             _stream(q.device))
     _raise_on(err, "flash_attention_bounded")
     VARIANT_LAUNCHES["flash_attention_bounded_pipe" if pipelined
@@ -470,6 +552,8 @@ def flash_attention_int8_launch(ops: Int8Operands) -> torch.Tensor:
     """One launch of the int8 kernel on pre-passed operands; returns the
     bf16 (B, Lq, H, D) output."""
     b, lq, h, d = ops.qi.shape
+    for name in ("qi", "ki", "v"):
+        _check_tma_operand(name, getattr(ops, name))
     out = torch.empty(b, lq, h, d, dtype=torch.bfloat16, device=ops.qi.device)
     with torch.cuda.device(ops.qi.device):
         err = _lib_int8().drt_flash_attention_int8(

@@ -7,7 +7,8 @@ a card and no JAX (tests/conftest.py imports JAX; skip it there):
 
 Every test is marked `cuda` and skips without a CUDA device.  Tolerances:
 the attention kernels compute in bf16 with fp32 softmax state and round
-where the plain version rounds, so outputs differ by about one bf16 ulp on
+where the plain version rounds (kernel 2 at D = 64 and 128 on wgmma, the
+others on mma.sync), so outputs differ by about one bf16 ulp on
 a few elements: max |err| within 2e-2 of max |plain| (no floor) and a
 relative L2 error within 1e-2; the int8 attention kernel is held to its
 plain version at the kernel's own key tile; the partial-stats kernel's m and
@@ -68,9 +69,12 @@ def test_kernel_matches_plain(cuda, b, lq, lk, h, d, q_scale, branch):
     got = tfa.flash_attention(q, k, v, bounded=True)
     want = tfa.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_headroom": 1,
-                            "flash_attention_int8": 0}
-    assert tfa.branch_counts(cuda)[branch] == 1
+    # D = 64, 128: kernel 1 and the wgmma kernel 2, one of them writing.
+    wgmma = int(d in tfa.WGMMA_HEAD_DIMS)
+    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_online": wgmma,
+                            "flash_attention_headroom": 1, "flash_attention_int8": 0}
+    assert tfa.branch_counts(cuda) == {"noshift": int(branch == "noshift"),
+                                       "online": int(branch == "online")}
     assert_close(got, want)
 
 
@@ -78,10 +82,63 @@ def test_onlinemax_forced(cuda):
     q, k, v = qkv(cuda, 1, 512, 512, 2, 128)
     tfa.reset_counts()
     got = tfa.flash_attention(q, k, v, bounded=False)
-    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_headroom": 0,
-                            "flash_attention_int8": 0}
+    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_online": 1,
+                            "flash_attention_headroom": 0, "flash_attention_int8": 0}
     assert tfa.branch_counts(cuda) == {"noshift": 0, "online": 1}
     assert_close(got, tfa.flash_attention_plain(q, k, v, bounded=False))
+
+
+# Kernel 2's wgmma body: ragged lengths (Lk not a multiple of the key tile,
+# Lq not of the 64-row block), keys fewer than one tile, and enough blocks for
+# several waves of two blocks per SM on 132 SMs.
+WGMMA_CASES = [(2, 1000, 777, 4, 128), (2, 1000, 777, 4, 64), (1, 100, 40, 2, 128),
+               (1, 70, 100, 2, 64), (4, 1024, 1024, 32, 128), (3, 777, 1000, 16, 64)]
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", WGMMA_CASES)
+@pytest.mark.parametrize("q_scale", [1.0, 30.0])
+def test_wgmma_online_kernel_matches_plain(cuda, b, lq, lk, h, d, q_scale):
+    q, k, v = qkv(cuda, b, lq, lk, h, d, q_scale, seed=lq + lk + d)
+    tfa.reset_counts()
+    got = tfa.flash_attention(q, k, v, bounded=False)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_online": 1,
+                            "flash_attention_headroom": 0, "flash_attention_int8": 0}
+    assert tfa.branch_counts(cuda) == {"noshift": 0, "online": 1}
+    assert_close(got, tfa.flash_attention_plain(q, k, v, bounded=False))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bounded_call_takes_each_branch_through_its_kernel(cuda, d):
+    """A bounded call at D = 64, 128 launches kernels 1 and 2; with large
+    logits the rule picks the online branch and kernel 2 writes the output,
+    with unit-RMS inputs kernel 1 does; the tally counts one branch a call."""
+    for q_scale, branch in ((100.0, "online"), (1.0, "noshift")):
+        q, k, v = qkv(cuda, 2, 1000, 777, 4, d, q_scale, seed=d)
+        tfa.reset_counts()
+        got = tfa.flash_attention(q, k, v, bounded=True)
+        torch.cuda.synchronize()
+        assert tfa.LAUNCHES["flash_attention"] == 1 and tfa.LAUNCHES["flash_attention_online"] == 1
+        assert tfa.branch_counts(cuda) == {"noshift": int(branch == "noshift"),
+                                           "online": int(branch == "online")}
+        assert_close(got, tfa.flash_attention_plain(q, k, v, bounded=True))
+        if branch == "online":  # bitwise what the unbounded call computes
+            assert torch.equal(got, tfa.flash_attention(q, k, v, bounded=False))
+
+
+def test_kernel_occupancy(cuda):
+    """No spills; kernel 1 keeps its resources at D = 128 (at most 169
+    registers and 69,632 bytes of dynamic shared memory, two blocks per SM);
+    the wgmma kernels keep at least 8 warps per SM resident."""
+    k1 = tfa.kernel_occupancy("noshift", 128)
+    assert k1["registers"] <= 169 and k1["dynamic_smem_bytes"] <= 69632
+    assert k1["blocks_per_sm"] >= 2 and k1["spill_bytes"] == 0
+    for kernel, d, pv8 in (("online", 64, False), ("online", 128, False), ("int8", 64, False),
+                           ("int8", 128, False), ("int8", 128, True), ("int8", 256, False),
+                           ("int8", 256, True)):
+        occ = tfa.kernel_occupancy(kernel, d, pv8)
+        warps = occ["blocks_per_sm"] * occ["threads_per_block"] // 32
+        assert occ["spill_bytes"] == 0 and warps >= 8, (kernel, d, pv8, occ)
 
 
 def test_headroom_stats_match_plain(cuda):
@@ -155,15 +212,16 @@ def test_w8a8_kernel_refuses_illegal_shapes(cuda):
 @pytest.mark.parametrize("b,lq,lk,h,d", [(5, 1024, 1024, 32, 128), (2, 1000, 777, 4, 128),
                                          (1, 300, 200, 2, 64), (1, 4096, 4096, 1, 512),
                                          (2, 1000, 777, 1, 512), (2, 1024, 1024, 8, 256),
-                                         (1, 300, 200, 2, 256)])
+                                         (1, 300, 200, 2, 256), (2, 1000, 777, 4, 64),
+                                         (2, 777, 1000, 4, 256), (1, 100, 40, 2, 128)])
 @pytest.mark.parametrize("pv8", [False, True], ids=["qk8", "qk8pv8"])
 def test_int8_attention_kernel_matches_plain(cuda, b, lq, lk, h, d, pv8):
     q, k, v = qkv(cuda, b, lq, lk, h, d)
     tfa.reset_counts()
     got = tfa.flash_attention(q, k, v, qk_int8=True, pv_int8=pv8)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_headroom": 0,
-                            "flash_attention_int8": 1}
+    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_online": 0,
+                            "flash_attention_headroom": 0, "flash_attention_int8": 1}
     assert_close(got, tfa.flash_attention_int8_plain(q, k, v, pv_int8=pv8,
                                                      block_k=tfa.INT8_BLOCK_K[d]))
     # Within the JAX package's int8 bounds of exact attention, or of what the

@@ -15,10 +15,14 @@ most 1% of the outputs may differ by more than 2e-5, none by more than
 2e-3, and the relative L2 error stays below 1e-4.  Summing the rounded P
 into l (instead of the unrounded p) moves most outputs by ~1e-4.
 
-Also: the dispatcher's 'pallas_pv_int8' backend, the flag precedence and
-defaults of `flash_attention` against JAX's, and the transposed-V key order
-the kernel's P fragment needs (tests/test_torch_cuda.py holds the CUDA
-kernel to this plain version)."""
+Also: the plain version at the CUDA kernel's own key tile
+(`INT8_BLOCK_K[D]`) against JAX's kernel at that tile for every head dim and
+mode, so that a change of a tile is checked against JAX by itself; the
+dispatcher's 'pallas_pv_int8' backend, the flag precedence and defaults of
+`flash_attention` against JAX's, and the transposed-V key order the
+kernel's P fragment needs (the same for mma.sync's m16n8k32 and wgmma's
+m64k32 8-bit A fragment), with its round trip (tests/test_torch_cuda.py
+holds the CUDA kernel to this plain version)."""
 
 import inspect
 
@@ -63,6 +67,21 @@ def run_both(q, k, v, pv8, block_k):
 def test_plain_matches_jax(b, lq, lk, h, d, pv8, block_k):
     q, k, v = make_qkv(b, lq, lk, h, d, seed=lq + d)
     got, want = run_both(q, k, v, pv8, block_k)
+    if not pv8:
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+        return
+    diff = np.abs(got - want)
+    assert (diff > 2e-5).mean() <= 1e-2
+    assert diff.max() <= 2e-3
+    assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("d", sorted(tfa.INT8_BLOCK_K))
+@pytest.mark.parametrize("pv8", [False, True], ids=["qk8", "qk8pv8"])
+def test_plain_at_the_kernel_tile_matches_jax(d, pv8):
+    """Ragged lengths (neither a multiple of the tile) at the kernel's tile."""
+    q, k, v = make_qkv(1, 70, 100, 2, d, seed=d + 1)
+    got, want = run_both(q, k, v, pv8, tfa.INT8_BLOCK_K[d])
     if not pv8:
         np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
         return
@@ -145,3 +164,20 @@ def test_transposed_v_key_order_matches_the_p_fragment():
     # Keys past Lk are zero; every key appears once.
     assert torch.all(vt[96:] == 0)
     assert sorted(vt[:96].tolist()) == sorted(list(range(lk)) + [0] * (96 - lk))
+
+
+@pytest.mark.parametrize("lk,lk_pad", [(70, 128), (64, 64), (1, 64)])
+def test_transposed_v_round_trip(lk, lk_pad):
+    """Undoing the key permutation of each 32-key group gives V back, zeros
+    past Lk."""
+    rng = np.random.default_rng(lk)
+    vi = torch.from_numpy(rng.integers(-127, 128, (2, lk, 3, 16), dtype=np.int8))
+    vt = tfa._transpose_v_int8(vi, lk_pad)
+    assert vt.shape == (2, 3, 16, lk_pad)
+    key_of_pos = [16 * h + 8 * a + 2 * t + b for h in range(2) for t in range(4)
+                  for a in range(2) for b in range(2)]
+    keys = torch.tensor([32 * g + key for g in range(lk_pad // 32) for key in key_of_pos])
+    back = torch.empty_like(vt)
+    back[..., keys] = vt
+    assert torch.equal(back[..., :lk], vi.permute(0, 2, 3, 1))
+    assert torch.all(back[..., lk:] == 0)
