@@ -18,14 +18,12 @@
 // All are one templated body (attend<D, Mode>).  The no-shift / online branch
 // is chosen on the device, without a host sync: headroom_kernel reduces the
 // bound (max ||q_i|| * max ||k_j|| per (b, h)) and max |v| into a small stats
-// buffer, and every block of every launch evaluates the rule on it
-// (headroom_rule.cuh), so all take the same branch.  At D = 256 and 512
-// kernels 1 and 2 are one launch (flash_attention_kernel<D>); at D = 64 and
-// 128 this file's launch is kernel 1 alone (online_elsewhere: it exits when
-// the rule says online) and kernel 2 is the wgmma kernel of
-// flash_attention_wgmma.cu, launched beside it on the same stats (it exits
-// when the rule says no-shift).  Kernels 3, 6 and 7 are launches of their own, with no headroom
-// launch and no branch tally.
+// buffer, and every block of the attention launch evaluates the rule on it
+// (headroom_rule.cuh), so all take the same branch.  Kernels 1 and 2 are one
+// launch (flash_attention_kernel<D>) at D = 256 and 512; at D = 64 and 128
+// they are one launch of flash_attention_wgmma.cu, as is kernel 6.  Kernel 7
+// at every D, and kernels 3 and 6 here, are launches of their own, with no
+// headroom launch and no branch tally.
 //
 // What bounds them on an H100: 4*Lq*Lk*H*D matmul operations against (Lq + 2 Lk)
 // *H*D*2 bytes, so at the DiT's D=128 they are tensor-core bound (13 TFLOP at
@@ -37,23 +35,29 @@
 //     Lk zero-filled and masked in-kernel (no padded copies of q, k, v);
 //   * QK^T and PV on mma.sync m16n8k16 bf16 with fp32 accumulation; S stays in
 //     registers and becomes the A operand of PV directly;
-//   * (B, L, H, D) read through its strides, no transposed copies;
+//   * q, k, v and the output contiguous (B, L, H, D), addressed from B, L, H
+//     and D (the public wrappers copy any other view first);
 //   * wide heads (D = 256, 512: the VAE's mid-block attention) split D across
 //     warps: each warp forms the partial S of its D slice, the slices are
 //     summed in shared memory in a fixed order, and each warp accumulates PV
 //     for its own D slice, so the fp32 accumulator fits in registers.
-// wgmma, TMA and warp specialisation for these modes are later work; kernel 2
-// at D <= 128 already has them (flash_attention_wgmma.cu).
+// wgmma, TMA and warp specialisation for these modes are later work; kernels
+// 1, 2 and 6 at D <= 128 already have them (flash_attention_wgmma.cu).
 //
 // Rounding points follow the JAX kernels: q is pre-scaled by the bf16-rounded
 // softmax_scale*log2(e) and rounded back to bf16; P is cast to bf16 before PV;
 // l and acc are fp32; max(l, 1e-37) in the no-shift and bounded modes only.
+// Those modes take exp2 as ex2.approx.ftz, so weights below 2^-126 flush to
+// zero as on XLA's CPU backend (rows whose bound overshoots their true max by
+// more than ~126 log2 units come out as zeros, as in JAX); the online modes
+// keep exp2f, where a flushed weight could not show.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "headroom_rule.cuh"
+#include "hopper.cuh"  // ex2
 
 namespace {
 
@@ -63,7 +67,6 @@ using rule::warp_max;
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;      // the JAX kernels' padded-key bias
 constexpr int kUnsupportedHeadDim = 10000;
-constexpr int kOnlineElsewhere = 10001;  // D <= 128, unbounded: the wgmma kernel's call
 
 template <int D> struct Tile;
 // WD: warps splitting the head dim; BK: keys per shared-memory tile.
@@ -97,7 +100,6 @@ struct AttnArgs {
   float q_scale;        // softmax_scale * log2(e), rounded to bf16
   float log2_lk_pad;
   int bounded;
-  int online_elsewhere; // the online branch is flash_attention_wgmma.cu's launch
   const float* mb;      // (B, H, Lq) row bound of the bounded modes
   float* m_out;         // (B, H, Lq) running max and normalizer of kPartial
   float* l_out;
@@ -348,17 +350,17 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = exp2f(s[n][e]);
+        for (int e = 0; e < 4; ++e) s[n][e] = hopper::ex2(s[n][e]);
         l0 += s[n][0] + s[n][1];
         l1 += s[n][2] + s[n][3];
       }
     } else if constexpr (kRowBound) {
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
-        s[n][0] = exp2f(s[n][0] - mb0);
-        s[n][1] = exp2f(s[n][1] - mb0);
-        s[n][2] = exp2f(s[n][2] - mb1);
-        s[n][3] = exp2f(s[n][3] - mb1);
+        s[n][0] = hopper::ex2(s[n][0] - mb0);
+        s[n][1] = hopper::ex2(s[n][1] - mb0);
+        s[n][2] = hopper::ex2(s[n][2] - mb1);
+        s[n][3] = hopper::ex2(s[n][3] - mb1);
         l0 += s[n][0] + s[n][1];
         l1 += s[n][2] + s[n][3];
       }
@@ -515,14 +517,9 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
   }
 }
 
-// Kernels 1 and 2 in one launch, or, with online_elsewhere (D = 64, 128),
-// kernel 1 alone: it does nothing when the rule says online.  Block
-// (0, 0, 0) tallies the branch.  At D = 64, 128 the kOnline body below is
-// compiled but never runs.  It stays only because, on the H100, this
-// function's no-shift path measured faster than an instantiation with the
-// no-shift body alone, at the same three blocks per SM; the cause was not
-// read from the SASS.  When kernel 1 moves onto the wgmma body, delete
-// online_elsewhere, kOnlineElsewhere and kernel 2's exit grid together.
+// Kernels 1 and 2 in one launch (D = 256, 512): bounded, every block
+// evaluates the headroom rule and runs the branch it picks; unbounded, the
+// online body.  Block (0, 0, 0) tallies the branch.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(AttnArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -533,7 +530,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(AttnArgs p) {
     atomicAdd(p.tally + (noshift ? 0 : 1), 1);
   if (noshift)
     attend<D, kNoShift>(p, smem);
-  else if (!p.online_elsewhere)
+  else
     attend<D, kOnline>(p, smem);
 }
 
@@ -584,8 +581,9 @@ AttnArgs attn_args(const void* q, const void* k, const void* v, void* o, int B, 
 extern "C" {
 
 const char* drt_error_string(int code) {
-  if (code == kUnsupportedHeadDim) return "unsupported head dim (take 64, 128, 256 or 512)";
-  if (code == kOnlineElsewhere) return "at head dim 64 or 128 the online softmax is flash_attention_wgmma's";
+  if (code == kUnsupportedHeadDim)
+    return "unsupported head dim for this launch (headroom, kernels 3 and 7: 64, 128, 256 or 512; "
+           "kernels 1 and 2, and 6: 256 or 512, flash_attention_wgmma.cu takes 64 and 128)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
@@ -612,6 +610,9 @@ int drt_flash_headroom(const void* q, const void* k, const void* v, void* stats,
   return cudaGetLastError();
 }
 
+// Kernels 1 and 2 in one launch at D = 256, 512.  bounded: stats is
+// flash_headroom's buffer and the rule picks the branch; otherwise the online
+// branch runs.  tally: int32[2], one added to the branch taken.
 int drt_flash_attention(const void* q, const void* k, const void* v, void* o, const void* stats,
                         void* tally, int B, int Lq, int Lk, int H, int D, float q_scale,
                         float log2_lk_pad, int bounded, void* stream) {
@@ -621,26 +622,19 @@ int drt_flash_attention(const void* q, const void* k, const void* v, void* o, co
   a.log2_lk_pad = log2_lk_pad;
   a.bounded = bounded;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // At D = 64 and 128 only the bounded call launches here, for kernel 1.
-  a.online_elsewhere = D <= 128;
-  if (a.online_elsewhere && !bounded) return kOnlineElsewhere;
   switch (D) {
-    case 64: return launch<64>(flash_attention_kernel<64>, a, st);
-    case 128: return launch<128>(flash_attention_kernel<128>, a, st);
     case 256: return launch<256>(flash_attention_kernel<256>, a, st);
     case 512: return launch<512>(flash_attention_kernel<512>, a, st);
     default: return kUnsupportedHeadDim;
   }
 }
 
-// Kernel 1's launch at head dim D: out = {registers, local (spill) bytes,
-// dynamic shared bytes, resident blocks per SM, threads per block}.
+// Kernels 1 and 2's launch at head dim D = 256, 512: out = {registers, local
+// (spill) bytes, dynamic shared bytes, resident blocks per SM, threads per block}.
 int drt_flash_occupancy(int D, int* out) {
   const void* fn;
   size_t smem;
   switch (D) {
-    case 64: fn = (const void*)flash_attention_kernel<64>; smem = Cfg<64>::smem_bytes; break;
-    case 128: fn = (const void*)flash_attention_kernel<128>; smem = Cfg<128>::smem_bytes; break;
     case 256: fn = (const void*)flash_attention_kernel<256>; smem = Cfg<256>::smem_bytes; break;
     case 512: fn = (const void*)flash_attention_kernel<512>; smem = Cfg<512>::smem_bytes; break;
     default: return kUnsupportedHeadDim;
@@ -676,22 +670,26 @@ int drt_flash_attention_partial(const void* q, const void* k, const void* v, voi
   }
 }
 
-// mb: fp32 (B, H, Lq), the per-row bound; pipelined selects kernel 6.
+// mb: fp32 (B, H, Lq), the per-row bound.  pipelined selects kernel 6 (D =
+// 256, 512 here; flash_attention_wgmma.cu at D = 64, 128), else kernel 7.
 int drt_flash_attention_bounded(const void* q, const void* k, const void* v, void* o,
                                 const void* mb, int B, int Lq, int Lk, int H, int D,
                                 float q_scale, int pipelined, void* stream) {
   AttnArgs a = attn_args(q, k, v, o, B, Lq, Lk, H, q_scale);
   a.mb = static_cast<const float*>(mb);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pipelined) {
+    switch (D) {
+      case 256: return launch<256>(flash_bounded_kernel<256, true>, a, st);
+      case 512: return launch<512>(flash_bounded_kernel<512, true>, a, st);
+      default: return kUnsupportedHeadDim;
+    }
+  }
   switch (D) {
-    case 64: return pipelined ? launch<64>(flash_bounded_kernel<64, true>, a, st)
-                              : launch<64>(flash_bounded_kernel<64, false>, a, st);
-    case 128: return pipelined ? launch<128>(flash_bounded_kernel<128, true>, a, st)
-                               : launch<128>(flash_bounded_kernel<128, false>, a, st);
-    case 256: return pipelined ? launch<256>(flash_bounded_kernel<256, true>, a, st)
-                               : launch<256>(flash_bounded_kernel<256, false>, a, st);
-    case 512: return pipelined ? launch<512>(flash_bounded_kernel<512, true>, a, st)
-                               : launch<512>(flash_bounded_kernel<512, false>, a, st);
+    case 64: return launch<64>(flash_bounded_kernel<64, false>, a, st);
+    case 128: return launch<128>(flash_bounded_kernel<128, false>, a, st);
+    case 256: return launch<256>(flash_bounded_kernel<256, false>, a, st);
+    case 512: return launch<512>(flash_bounded_kernel<512, false>, a, st);
     default: return kUnsupportedHeadDim;
   }
 }

@@ -1,24 +1,38 @@
-// Kernel 2 for Hopper (sm_90a) at head dims 64 and 128: the online-softmax
-// flash attention on wgmma, TMA and mbarriers.
+// Kernels 1, 2 and 6 for Hopper (sm_90a) at head dims 64 and 128: flash
+// attention on wgmma, TMA and mbarriers.
 //
-// Replaces _flash_kernel / _flash_kernel_nobias of
-// diffusionrenderer_tpu/ops/flash_attention.py (:58-118; pallas_call at :478
-// and :675), reached through flash_attention(bounded=False),
-// attention(backend='pallas_onlinemax'), flash_sp, and the online branch of
-// every bounded call: there kernel 1 (csrc/flash_attention.cu) is launched
-// first on the same stats buffer and this kernel's blocks evaluate the same
-// headroom rule (headroom_rule.cuh) and exit when it says no-shift.  With
-// q' = bf16(q * bf16(scale * log2 e)), per key tile of BK keys and query row i:
-//   m_new = max(m, max_j s_ij),  alpha = exp2(m - m_new)
-//   p     = exp2(s - m_new),     l = l * alpha + sum_j p,  acc = acc * alpha + bf16(p) v
-// and out = acc / l (keys past Lk: s = -1e30), the rounding points of the
-// mma.sync body it replaces.
+// Replaces, of diffusionrenderer_tpu/ops/flash_attention.py:
+//   * _flash_kernel_noshift (:185-259) - p = exp2(s) with no max shift, taken
+//     when the headroom rule of _bounded_cond_call (:488-491) holds (kernel 1);
+//   * _flash_kernel / _flash_kernel_nobias (:58-118; pallas_call at :478 and
+//     :675) - the online softmax (kernel 2): flash_attention(bounded=False),
+//     attention(backend='pallas_onlinemax'), flash_sp, and the online branch
+//     of every bounded call;
+//   * _flash_kernel_bounded_pipe (:262-314) - p = exp2(s - mb_i) with the
+//     caller's row bound mb_i = ||q'_i|| * max_j ||k_j|| and the score tile
+//     carried one key tile ahead (kernel 6, flash_attention(bounded=True,
+//     pipelined=True)).
+// Kernels 1 and 2 are one launch (attention_kernel): every block evaluates
+// the headroom rule (headroom_rule.cuh) on the stats buffer that
+// csrc/flash_attention.cu's headroom_kernel fills, then runs the no-shift or
+// the online body; block (0, 0, 0) tallies the branch.  An unbounded call
+// runs the online body and tallies it.  Kernel 6 is a launch of its own
+// (bounded_pipe_kernel), with no rule and no tally.  With
+// q' = bf16(q * bf16(scale * log2 e)), per key tile of BK keys and row i:
+//   no-shift  p = exp2(s),                  l += sum_j p,  acc += bf16(p) v
+//   online    m_new = max(m, max_j s_ij),   alpha = exp2(m - m_new),
+//             p = exp2(s - m_new),  l = l * alpha + sum_j p,
+//             acc = acc * alpha + bf16(p) v
+//   bounded   p = exp2(s - mb_i),           l += sum_j p,  acc += bf16(p) v
+// and out = acc / l, l clamped at 1e-37 in the no-shift and bounded modes
+// (keys past Lk: s = -1e30): the rounding points of the JAX kernels.  exp2
+// is one SFU instruction (ex2.approx.ftz): weights below 2^-126 flush to
+// zero, as on XLA's CPU backend; the plain versions flush them too.
 //
-// What bounds it on an H100: 4*Lq*Lk*H*D bf16 tensor-core operations (0.087
+// What bounds them on an H100: 4*Lq*Lk*H*D bf16 tensor-core operations (0.087
 // ms at the DiT's (5, 1024, 32, 128)), then Lq*Lk*H exp2 on the SFUs, and
 // the K and V tiles every block streams from L2 (each query block reads all
-// of its head's keys: 1.3 GB per call at the DiT shape with 64-row blocks).
-// The design:
+// of its head's keys).  The design:
 //   * two warpgroups (256 threads) per block, 64 query rows each (wgmma m64),
 //     sharing every K and V tile: 128 query rows per block halve the L2
 //     traffic of one warpgroup per block; grid (ceil(Lq / 128), H, B),
@@ -27,19 +41,22 @@
 //     q_prescale rounding point), then a proxy fence before the first wgmma;
 //   * K and V tiles arrive by TMA (128-byte swizzle, keys past Lk zero-filled)
 //     in rings of two stages with one mbarrier each; thread 0 issues the
-//     copies, two tiles ahead of use;
-//   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//     copies into a stage once both warpgroups' wgmma reading it completed;
+//   * S = Q K^T is wgmma m64nBKk16 (BK = 128 keys a tile, 64 for kernel 6)
+//     with both operands in shared memory
 //     (K-major); P, converted to bf16 in registers, is the register A operand
 //     of the PV wgmma m64n{D}k16, V read MN-major (the transpose bit);
-//   * FlashAttention-3's intra-warpgroup pipelining: tile j's QK^T and tile
-//     j-1's PV are in flight together while tile j's softmax runs, so the
-//     SFU work overlaps the tensor cores, and the two warpgroups overlap
-//     each other (160 / 80 KB of shared memory at D = 128 / 64, one block
-//     of 8 warps per SM);
-//   * exp2 is one SFU instruction (ex2.approx.ftz: weights below 2^-126
-//     flush to zero).
-// The softmax is a template Mode, as in attend<D, Mode>; only kOnline is
-// instantiated so far.
+//   * the overlap follows what each softmax must wait for.  Online:
+//     FlashAttention-3's intra-warpgroup pipelining, tile j's QK^T and tile
+//     j-1's PV in flight during tile j's softmax, then a wait for the PV
+//     before the alpha rescale.  No-shift: nothing rescales the accumulator,
+//     so P is double-buffered and tile j-1's PV stays in flight across tile
+//     j's softmax and tile j+1's QK^T.  Bounded (kernel 6): the score tile
+//     is carried, as the TPU kernel's scratch carries it: tile j+1's QK^T is
+//     issued before tile j's exp2, into a second S accumulator, so the
+//     tensor cores compute S_{j+1} while the SFUs take exp2 of S_j;
+//   * 160 / 80 KB of shared memory at D = 128 / 64 with 128-key tiles (96 /
+//     48 KB for kernel 6's 64-key tiles), one block of 8 warps per SM.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -58,30 +75,50 @@ constexpr int kThreads = 128 * kWGS;
 constexpr float kNegInf = -1e30f;  // the JAX kernels' padded-key bias
 constexpr int kUnsupported = 10020;
 
-enum Mode { kNoShift, kOnline, kPartial, kBounded, kBoundedPipe };
+enum Mode { kNoShift, kOnline, kBoundedPipe };
 
-template <int D> struct Cfg {
+// Keys per tile, the QK^T wgmma's N: 128, and 64 for kernel 6, which holds
+// two score tiles, the accumulator and P in registers (at 128 keys ptxas
+// spills it: 224 of 255 registers before addresses and temporaries).
+template <Mode M> constexpr int kBlockK = M == kBoundedPipe ? 64 : 128;
+
+template <int D, int BK_> struct Cfg {
   static constexpr int BQ = 64 * kWGS;           // query rows: one wgmma m64 per warpgroup
-  static constexpr int BK = 128;                 // keys per tile: the QK^T wgmma's N
+  static constexpr int BK = BK_;
   static constexpr int NB = D / 64;              // 128-byte boxes per bf16 row
-  static constexpr int STAGES = 2;              // K and V tiles in flight
+  static constexpr int STAGES = 2;               // K and V tiles in flight
   static constexpr int Q_BYTES = NB * BQ * 128;
   static constexpr int T_BYTES = NB * BK * 128;  // one K or V tile
   // The tiles from the 1024-aligned start, then the barriers and the
   // rule's scratch.
-  static constexpr size_t smem_bytes =
-      Q_BYTES + 2 * STAGES * T_BYTES + 8 * (1 + 2 * STAGES) + 4 * (kThreads / 32 + 1);
+  static constexpr int BAR_OFFSET = Q_BYTES + 2 * STAGES * T_BYTES;
+  static constexpr int SCRATCH_OFFSET = BAR_OFFSET + 8 * (1 + 2 * STAGES);
+  static constexpr size_t smem_bytes = SCRATCH_OFFSET + 4 * (kThreads / 32 + 1);
 };
 
 struct Args {
   __nv_bfloat16* o;
-  const float* stats;  // the headroom stats, read when bounded
+  const float* stats;  // the headroom stats, read when bounded (kernels 1 and 2)
   int* tally;          // [no-shift launches, online launches]
+  const float* mb;     // (B, H, Lq) row bound (kernel 6)
   int B, Lq, Lk, H;
   float q_scale;       // softmax_scale * log2(e), rounded to bf16
   float log2_lk_pad;
   int bounded;
 };
+
+template <int N> struct Buf { static constexpr int value = N; };
+
+template <int I, typename T> __device__ __forceinline__ T& pick(T& a, T& b) {
+  if constexpr (I == 0) return a;
+  else return b;
+}
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_bf16_n64(d, a, b, scale_d);
+  else wgmma_ss_bf16_n128(d, a, b, scale_d);
+}
 
 template <int N>
 __device__ __forceinline__ void mma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
@@ -106,37 +143,31 @@ __device__ __forceinline__ uint64_t kmajor(uint32_t base, int rows, int ks) {
   return make_desc(base + (ks / 4) * rows * 128 + (ks % 4) * 32, 16, 1024, 128);
 }
 
+// One block's 128 query rows against every key, in mode kMode.  Every thread
+// of the block calls it; smem is 1024-byte aligned and Cfg<D, kBlockK<kMode>>
+// ::smem_bytes long.
 template <int D, Mode kMode>
-__global__ void __launch_bounds__(kThreads)
-    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, const Args p) {
-  static_assert(kMode == kOnline, "only the online softmax runs on this body so far");
-  using C = Cfg<D>;
+__device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap* tk,
+                                       const CUtensorMap* tv, const Args& p, unsigned char* smem) {
+  using C = Cfg<D, kBlockK<kMode>>;
   constexpr int BK = C::BK, S = C::STAGES;
   constexpr int NS = BK / 2;  // S accumulator registers
   constexpr int NO = D / 2;   // output accumulator registers
   constexpr int KP = BK / 16; // k16 steps of PV
-  extern __shared__ __align__(1024) unsigned char smem[];
-  if (smem_u32(smem) & 1023) __trap();  // the swizzled tiles need 1024-byte alignment
   unsigned char* Qs = smem;
   unsigned char* Ks = Qs + C::Q_BYTES;
   unsigned char* Vs = Ks + S * C::T_BYTES;
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + S * C::T_BYTES);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + C::BAR_OFFSET);
   uint64_t* kbar = qbar + 1;
   uint64_t* vbar = kbar + S;
-
-  if (p.bounded) {  // kernel 1's call when the rule says no-shift
-    if (rule::block_noshift<kThreads>(p.stats, p.B * p.H, p.log2_lk_pad,
-                                      reinterpret_cast<float*>(vbar + S)))
-      return;
-  } else if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
-    atomicAdd(p.tally + 1, 1);
-  }
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * C::BQ;
   const int nk = (p.Lk + BK - 1) / BK;
+  // Thread (g, t4) of warp w of its warpgroup holds rows 16w+g and 16w+g+8,
+  // keys 8n + 2 t4 (+1) of each n8 tile of S.
+  const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
 
   if (tid == 0) {
     mbar_init(qbar, 1);
@@ -156,13 +187,24 @@ __global__ void __launch_bounds__(kThreads)
     for (int nb = 0; nb < C::NB; ++nb)
       tma_load_4d(ring + s * C::T_BYTES + nb * BK * 128, map, bars + s, nb * 64, h, t * BK, b);
   };
+  // V tiles loaded ahead of the loop: the online body refills V_{j-1}'s
+  // stage at the end of iteration j, the others one iteration later.
+  constexpr int kVAhead = kMode == kOnline ? S - 1 : S;
   if (tid == 0) {
     mbar_expect_tx(qbar, C::Q_BYTES);
 #pragma unroll
     for (int nb = 0; nb < C::NB; ++nb)
-      tma_load_4d(Qs + nb * C::BQ * 128, &tq, qbar, nb * 64, h, q0, b);
-    for (int t = 0; t < S && t < nk; ++t) load_tile(&tk, Ks, kbar, t);
-    for (int t = 0; t < S - 1 && t < nk; ++t) load_tile(&tv, Vs, vbar, t);
+      tma_load_4d(Qs + nb * C::BQ * 128, tq, qbar, nb * 64, h, q0, b);
+    for (int t = 0; t < S && t < nk; ++t) load_tile(tk, Ks, kbar, t);
+    for (int t = 0; t < kVAhead && t < nk; ++t) load_tile(tv, Vs, vbar, t);
+  }
+
+  // The bounded mode's fixed per-row shift (padded rows are never stored).
+  float mb0 = 0.f, mb1 = 0.f;
+  if constexpr (kMode == kBoundedPipe) {
+    const long long rows = ((long long)b * p.H + h) * p.Lq;
+    if (r0 < p.Lq) mb0 = p.mb[rows + r0];
+    if (r1 < p.Lq) mb1 = p.mb[rows + r1];
   }
 
   // q' = bf16(q * q_scale) in place: elementwise, so the swizzle is immaterial.
@@ -180,19 +222,19 @@ __global__ void __launch_bounds__(kThreads)
 
   // This warpgroup's 64 rows of each Q box.
   const uint32_t q_addr = smem_u32(Qs) + wg * 64 * 128, k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
-  float s[NS], o[NO];
-#pragma unroll
-  for (int i = 0; i < NS; ++i) s[i] = 0.f;
+  float o[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float l0 = 0.f, l1 = 0.f;
 
-  // S = q' K_t^T; one commit group.
-  auto issue_qk = [&](int t) {
+  auto wait_k = [&](int t) { mbar_wait(kbar + t % S, (t / S) & 1); };
+  auto wait_v = [&](int t) { mbar_wait(vbar + t % S, (t / S) & 1); };
+  // dst = q' K_t^T; one commit group.
+  auto issue_qk = [&](float (&dst)[NS], int t) {
     const uint32_t kb = k_addr + (t % S) * C::T_BYTES;
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks)
-      wgmma_ss_bf16_n128(s, kmajor(q_addr, C::BQ, ks), kmajor(kb, BK, ks), ks);
+      mma_ss<BK>(dst, kmajor(q_addr, C::BQ, ks), kmajor(kb, BK, ks), ks);
     wg_commit();
   };
   // acc += P V_t, V MN-major: LBO steps 64 output columns (one box), SBO 8 keys.
@@ -203,102 +245,234 @@ __global__ void __launch_bounds__(kThreads)
       mma_rs_tb<D>(o, pa[kp], make_desc(vb + kp * 16 * 128, BK * 128, 1024, 128), 1);
     wg_commit();
   };
-  // Tile t's scores in s -> P in place (fp32), the running max and l
-  // updated, and the rescale of acc in a0 / a1 (applied by the caller once
-  // the previous tile's PV has landed).  Thread (g, t4) of warp w holds rows
-  // 16w+g and 16w+g+8, keys 8n + 2 t4 (+1) of each n8 tile.
-  auto softmax = [&](int t, float& a0, float& a1) {
-    if ((t + 1) * BK > p.Lk) {  // ragged last tile: mask keys >= Lk
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (t * BK + n * 8 + 2 * t4 + (e & 1) >= p.Lk) s[4 * n + e] = kNegInf;
-    }
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
-      mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    a0 = ex2(m0 - mx0);
-    a1 = ex2(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= a0;
-    l1 *= a1;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[4 * n] = ex2(s[4 * n] - m0);
-      s[4 * n + 1] = ex2(s[4 * n + 1] - m0);
-      s[4 * n + 2] = ex2(s[4 * n + 2] - m1);
-      s[4 * n + 3] = ex2(s[4 * n + 3] - m1);
-      l0 += s[4 * n] + s[4 * n + 1];
-      l1 += s[4 * n + 2] + s[4 * n + 3];
-    }
-  };
-  // P to bf16: two adjacent n8 tiles of the accumulator are one k16 A fragment.
-  auto pack_p = [&](uint32_t (&pa)[KP][4]) {
+  // P = exp2(x - shift) of tile t's scores (keys >= Lk: 0) as bf16 A
+  // fragments of PV, summed into l (the no-shift and bounded modes); x is
+  // only read.  Two adjacent n8 tiles of the accumulator are one k16 A
+  // fragment.
+  auto exp_pack = [&](const float (&x)[NS], uint32_t (&pa)[KP][4], float sh0, float sh1, int t) {
+    // This thread's keys 8n + 2 t4 + (e & 1) of the tile are below Lk when
+    // 8n + (e & 1) < lim.
+    const int lim = (t + 1) * BK > p.Lk ? p.Lk - t * BK - 2 * t4 : BK;
 #pragma unroll
     for (int kp = 0; kp < KP; ++kp) {
-      pa[kp][0] = pack_bf16(s[8 * kp], s[8 * kp + 1]);
-      pa[kp][1] = pack_bf16(s[8 * kp + 2], s[8 * kp + 3]);
-      pa[kp][2] = pack_bf16(s[8 * kp + 4], s[8 * kp + 5]);
-      pa[kp][3] = pack_bf16(s[8 * kp + 6], s[8 * kp + 7]);
+      float e[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float y = ex2(x[8 * kp + i] - ((i & 2) ? sh1 : sh0));
+        e[i] = (2 * kp + i / 4) * 8 + (i & 1) < lim ? y : 0.f;
+      }
+      l0 += e[0] + e[1];
+      l1 += e[2] + e[3];
+      l0 += e[4] + e[5];
+      l1 += e[6] + e[7];
+      pa[kp][0] = pack_bf16(e[0], e[1]);
+      pa[kp][1] = pack_bf16(e[2], e[3]);
+      pa[kp][2] = pack_bf16(e[4], e[5]);
+      pa[kp][3] = pack_bf16(e[6], e[7]);
     }
   };
 
-  uint32_t pa[KP][4];
-  float a0, a1;
-  mbar_wait(kbar, 0);
-  wg_fence();
-  issue_qk(0);
-  wg_wait<0>();
-  fence_regs(s);
-  softmax(0, a0, a1);
-  pack_p(pa);
-  __syncthreads();  // every warp is done with K_0's stage
-  if (tid == 0) {
-    if (S < nk) load_tile(&tk, Ks, kbar, S);
-    if (S - 1 < nk) load_tile(&tv, Vs, vbar, S - 1);
-  }
-  for (int j = 1; j < nk; ++j) {
-    mbar_wait(kbar + j % S, (j / S) & 1);
+  if constexpr (kMode == kOnline) {
+    float s[NS];
+    uint32_t pa[KP][4];
+    float m0 = kNegInf, m1 = kNegInf, a0, a1;
+    // Tile t's scores in s -> P in place (fp32), the running max and l
+    // updated, and the rescale of acc in a0 / a1 (applied by the caller once
+    // the previous tile's PV has landed).
+    auto softmax = [&](int t) {
+      if ((t + 1) * BK > p.Lk) {  // ragged last tile: mask keys >= Lk
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (t * BK + n * 8 + 2 * t4 + (e & 1) >= p.Lk) s[4 * n + e] = kNegInf;
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      a0 = ex2(m0 - mx0);
+      a1 = ex2(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        s[4 * n] = ex2(s[4 * n] - m0);
+        s[4 * n + 1] = ex2(s[4 * n + 1] - m0);
+        s[4 * n + 2] = ex2(s[4 * n + 2] - m1);
+        s[4 * n + 3] = ex2(s[4 * n + 3] - m1);
+        l0 += s[4 * n] + s[4 * n + 1];
+        l1 += s[4 * n + 2] + s[4 * n + 3];
+      }
+    };
+    // P to bf16: two adjacent n8 tiles of the accumulator are one k16 A fragment.
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kp = 0; kp < KP; ++kp) {
+        pa[kp][0] = pack_bf16(s[8 * kp], s[8 * kp + 1]);
+        pa[kp][1] = pack_bf16(s[8 * kp + 2], s[8 * kp + 3]);
+        pa[kp][2] = pack_bf16(s[8 * kp + 4], s[8 * kp + 5]);
+        pa[kp][3] = pack_bf16(s[8 * kp + 6], s[8 * kp + 7]);
+      }
+    };
+
+    wait_k(0);
+    wg_fence();
+    issue_qk(s, 0);
+    wg_wait<0>();
+    fence_regs(s);
+    softmax(0);
+    pack_p();
+    __syncthreads();  // every warp is done with K_0's stage
+    if (tid == 0) {
+      if (S < nk) load_tile(tk, Ks, kbar, S);
+      if (S - 1 < nk) load_tile(tv, Vs, vbar, S - 1);
+    }
+    for (int j = 1; j < nk; ++j) {
+      wait_k(j);
+      wg_fence();
+      fence_regs(o);
+      fence_regs(pa);
+      issue_qk(s, j);
+      wait_v(j - 1);
+      issue_pv(pa, j - 1);
+      wg_wait<1>();  // S_j has landed; PV_{j-1} may still run
+      fence_regs(s);
+      softmax(j);
+      wg_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[4 * n] *= a0;
+        o[4 * n + 1] *= a0;
+        o[4 * n + 2] *= a1;
+        o[4 * n + 3] *= a1;
+      }
+      pack_p();
+      __syncthreads();  // K_j's and V_{j-1}'s stages are free
+      if (tid == 0) {
+        if (j + S < nk) load_tile(tk, Ks, kbar, j + S);
+        if (j + S - 1 < nk) load_tile(tv, Vs, vbar, j + S - 1);
+      }
+    }
+    wait_v(nk - 1);
     wg_fence();
     fence_regs(o);
     fence_regs(pa);
-    issue_qk(j);
-    mbar_wait(vbar + (j - 1) % S, ((j - 1) / S) & 1);
-    issue_pv(pa, j - 1);
-    wg_wait<1>();  // S_j has landed; PV_{j-1} may still run
-    fence_regs(s);
-    softmax(j, a0, a1);
+    issue_pv(pa, nk - 1);
+  } else if constexpr (kMode == kNoShift) {
+    // P of tile j in pa0 (j even) or pa1 (j odd): PV_{j-1} reads one buffer
+    // while tile j's softmax fills the other, so it is waited for only when
+    // tile j+1's QK^T lands (and V_{j-1}'s stage is refilled after that).
+    float s[NS];
+    uint32_t pa0[KP][4], pa1[KP][4];
+    wait_k(0);
+    wg_fence();
+    issue_qk(s, 0);
     wg_wait<0>();
-    fence_regs(o);
-    fence_regs(pa);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[4 * n] *= a0;
-      o[4 * n + 1] *= a0;
-      o[4 * n + 2] *= a1;
-      o[4 * n + 3] *= a1;
+    fence_regs(s);
+    __syncthreads();  // every warp is done with K_0's stage
+    if (tid == 0 && S < nk) load_tile(tk, Ks, kbar, S);
+    exp_pack(s, pa0, 0.f, 0.f, 0);
+    auto step = [&](int j, auto buf) {
+      constexpr int B = decltype(buf)::value;  // j & 1
+      auto& cur = pick<B>(pa0, pa1);
+      auto& prev = pick<1 - B>(pa0, pa1);
+      wait_k(j);
+      wg_fence();
+      fence_regs(o);
+      fence_regs(cur);
+      fence_regs(prev);
+      issue_qk(s, j);
+      wait_v(j - 1);
+      issue_pv(prev, j - 1);
+      wg_wait<1>();  // S_j and PV_{j-2} have landed; PV_{j-1} may still run
+      fence_regs(s);
+      fence_regs(cur);
+      __syncthreads();  // K_j's and V_{j-2}'s stages are free
+      if (tid == 0) {
+        if (j + S < nk) load_tile(tk, Ks, kbar, j + S);
+        if (j >= S) load_tile(tv, Vs, vbar, j);
+      }
+      exp_pack(s, cur, 0.f, 0.f, j);
+    };
+    int j = 1;
+    for (; j + 1 < nk; j += 2) {
+      step(j, Buf<1>{});
+      step(j + 1, Buf<0>{});
     }
-    pack_p(pa);
-    __syncthreads();  // K_j's and V_{j-1}'s stages are free
-    if (tid == 0) {
-      if (j + S < nk) load_tile(&tk, Ks, kbar, j + S);
-      if (j + S - 1 < nk) load_tile(&tv, Vs, vbar, j + S - 1);
+    if (j < nk) step(j, Buf<1>{});
+    wait_v(nk - 1);
+    wg_fence();
+    fence_regs(o);
+    fence_regs(pa0);
+    fence_regs(pa1);
+    if ((nk - 1) & 1) issue_pv(pa1, nk - 1);
+    else issue_pv(pa0, nk - 1);
+  } else {
+    // Kernel 6: tile j's scores in s0 (j even) or s1 (j odd); tile j+1's
+    // QK^T is in flight in the other while tile j's exp2 runs.  Whether a
+    // next tile exists is a compile-time argument of the step: every wgmma
+    // is issued on every path through the loop, as ptxas needs to keep the
+    // wgmma pipelined.
+    float s0[NS], s1[NS];
+    uint32_t pa[KP][4];
+    wait_k(0);
+    fence_regs(o);  // acc's zeros are defined before the first wgmma is in flight
+    wg_fence();
+    issue_qk(s0, 0);
+    auto step = [&](int j, auto buf, auto next) {
+      constexpr int B = decltype(buf)::value;  // j & 1
+      constexpr bool kNext = decltype(next)::value;  // j + 1 < nk
+      auto& cur = pick<B>(s0, s1);
+      auto& nxt = pick<1 - B>(s0, s1);
+      if constexpr (kNext) {
+        wait_k(j + 1);
+        wg_fence();
+        fence_regs(nxt);
+        fence_regs(o);
+        fence_regs(pa);
+        issue_qk(nxt, j + 1);
+        wg_wait<1>();  // S_j and PV_{j-1} have landed; S_{j+1} runs on
+      } else {
+        wg_wait<0>();
+      }
+      fence_regs(cur);
+      fence_regs(o);
+      fence_regs(pa);
+      __syncthreads();  // K_j's and V_{j-1}'s stages are free
+      if (tid == 0) {
+        if (j + S < nk) load_tile(tk, Ks, kbar, j + S);
+        if (j + 1 >= S && j + 1 < nk) load_tile(tv, Vs, vbar, j + 1);
+      }
+      exp_pack(cur, pa, mb0, mb1, j);
+      wait_v(j);
+      wg_fence();
+      fence_regs(o);
+      fence_regs(pa);
+      issue_pv(pa, j);
+    };
+    int j = 0;
+    for (; j + 2 < nk; j += 2) {
+      step(j, Buf<0>{}, Buf<1>{});
+      step(j + 1, Buf<1>{}, Buf<1>{});
+    }
+    if (j + 1 < nk) {
+      step(j, Buf<0>{}, Buf<1>{});
+      step(j + 1, Buf<1>{}, Buf<0>{});
+    } else {
+      step(j, Buf<0>{}, Buf<0>{});
     }
   }
-  mbar_wait(vbar + (nk - 1) % S, ((nk - 1) / S) & 1);
-  wg_fence();
-  fence_regs(o);
-  fence_regs(pa);
-  issue_pv(pa, nk - 1);
   wg_wait<0>();
   fence_regs(o);
 
@@ -306,7 +480,10 @@ __global__ void __launch_bounds__(kThreads)
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
+  if constexpr (kMode != kOnline) {
+    l0 = fmaxf(l0, 1e-37f);
+    l1 = fmaxf(l1, 1e-37f);
+  }
   const long long row_stride = (long long)p.H * D;
   __nv_bfloat16* ob = p.o + (long long)b * p.Lq * row_stride + (long long)h * D;
 #pragma unroll
@@ -321,23 +498,71 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D> const void* kernel_of() { return (const void*)flash_wgmma_kernel<D, kOnline>; }
-
+// Kernels 1 and 2 in one launch: bounded, every block evaluates the headroom
+// rule and runs the branch it picks; unbounded, the online body.  Block
+// (0, 0, 0) tallies the branch.
 template <int D>
-int launch(const void* q, const void* k, const void* v, const Args& a, cudaStream_t stream) {
-  using C = Cfg<D>;
+__global__ void __launch_bounds__(kThreads)
+    attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const Args p) {
+  using C = Cfg<D, kBlockK<kNoShift>>;
+  static_assert(kBlockK<kNoShift> == kBlockK<kOnline>, "both branches share one layout");
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (smem_u32(smem) & 1023) __trap();  // the swizzled tiles need 1024-byte alignment
+  const int noshift =
+      p.bounded ? rule::block_noshift<kThreads>(p.stats, p.B * p.H, p.log2_lk_pad,
+                                                reinterpret_cast<float*>(smem + C::SCRATCH_OFFSET))
+                : 0;
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
+    atomicAdd(p.tally + (noshift ? 0 : 1), 1);
+  if (noshift)
+    attend<D, kNoShift>(&tq, &tk, &tv, p, smem);
+  else
+    attend<D, kOnline>(&tq, &tk, &tv, p, smem);
+}
+
+// Kernel 6: the bounded softmax on the caller's row bound.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    bounded_pipe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const Args p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (smem_u32(smem) & 1023) __trap();
+  attend<D, kBoundedPipe>(&tq, &tk, &tv, p, smem);
+}
+
+typedef void (*KernelFn)(CUtensorMap, CUtensorMap, CUtensorMap, Args);
+
+template <int D, int BK>
+int launch(KernelFn kernel, const void* q, const void* k, const void* v, const Args& a,
+           cudaStream_t stream) {
+  using C = Cfg<D, BK>;
   CUtensorMap mq, mk, mv;
   int e = encode_bshd(&mq, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.B, a.Lq, a.H, D, 128, C::BQ);
   if (e == 0) e = encode_bshd(&mk, k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.B, a.Lk, a.H, D, 128, C::BK);
   if (e == 0) e = encode_bshd(&mv, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.B, a.Lk, a.H, D, 128, C::BK);
   if (e != 0) return e;
-  cudaError_t ce = cudaFuncSetAttribute(flash_wgmma_kernel<D, kOnline>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t ce = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         static_cast<int>(C::smem_bytes));
   if (ce != cudaSuccess) return ce;
   const dim3 grid((a.Lq + C::BQ - 1) / C::BQ, a.H, a.B);
-  flash_wgmma_kernel<D, kOnline><<<grid, kThreads, C::smem_bytes, stream>>>(mq, mk, mv, a);
+  kernel<<<grid, kThreads, C::smem_bytes, stream>>>(mq, mk, mv, a);
   return cudaGetLastError();
+}
+
+// The kernel of `which` and its dynamic shared bytes: 0 = kernels 1 and 2's
+// launch, 1 = kernel 6.
+int kernel_of(int which, int D, KernelFn* fn, size_t* smem) {
+  if (which == 0 && D == 64) *fn = attention_kernel<64>, *smem = Cfg<64, kBlockK<kOnline>>::smem_bytes;
+  else if (which == 0 && D == 128) *fn = attention_kernel<128>, *smem = Cfg<128, kBlockK<kOnline>>::smem_bytes;
+  else if (which == 1 && D == 64) *fn = bounded_pipe_kernel<64>, *smem = Cfg<64, kBlockK<kBoundedPipe>>::smem_bytes;
+  else if (which == 1 && D == 128) *fn = bounded_pipe_kernel<128>, *smem = Cfg<128, kBlockK<kBoundedPipe>>::smem_bytes;
+  else return kUnsupported;
+  return 0;
+}
+
+bool bad_sizes(int B, int Lq, int Lk, int H) {
+  return B < 1 || Lq < 1 || Lk < 1 || H < 1 || B > 65535 || H > 65535;
 }
 
 }  // namespace
@@ -345,44 +570,56 @@ int launch(const void* q, const void* k, const void* v, const Args& a, cudaStrea
 extern "C" {
 
 const char* drt_flash_wgmma_error_string(int code) {
-  if (code == kUnsupported) return "unsupported head dim or sizes (the wgmma kernel takes D = 64, 128)";
+  if (code == kUnsupported) return "unsupported head dim or sizes (the wgmma kernels take D = 64, 128)";
   if (code == kEncodeFailed) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Kernel 2 on (B, L, H, D) bf16 q, k, v.  bounded: stats is flash_headroom's
-// buffer and the blocks exit when the headroom rule says no-shift (kernel 1,
-// launched beside this on the same stream, then writes o and tallies);
-// otherwise stats is unused and the launch tallies one online branch.
-int drt_flash_online(const void* q, const void* k, const void* v, void* o, const void* stats,
-                     void* tally, int B, int Lq, int Lk, int H, int D, float q_scale,
-                     float log2_lk_pad, int bounded, void* stream) {
-  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || B > 65535 || H > 65535) return kUnsupported;
+// Kernels 1 and 2 in one launch on (B, L, H, D) bf16 q, k, v.  bounded:
+// stats is flash_headroom's buffer and the rule picks the branch; otherwise
+// stats is unused and the online branch runs.  tally: int32[2], one added to
+// the branch taken.
+int drt_flash_wgmma_attention(const void* q, const void* k, const void* v, void* o,
+                              const void* stats, void* tally, int B, int Lq, int Lk, int H, int D,
+                              float q_scale, float log2_lk_pad, int bounded, void* stream) {
+  if (bad_sizes(B, Lq, Lk, H)) return kUnsupported;
   Args a{static_cast<__nv_bfloat16*>(o), static_cast<const float*>(stats), static_cast<int*>(tally),
-         B, Lq, Lk, H, q_scale, log2_lk_pad, bounded};
+         nullptr, B, Lq, Lk, H, q_scale, log2_lk_pad, bounded};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(q, k, v, a, st);
-    case 128: return launch<128>(q, k, v, a, st);
+    case 64: return launch<64, kBlockK<kOnline>>(attention_kernel<64>, q, k, v, a, st);
+    case 128: return launch<128, kBlockK<kOnline>>(attention_kernel<128>, q, k, v, a, st);
     default: return kUnsupported;
   }
 }
 
-// out = {registers, local (spill) bytes, dynamic shared bytes, resident blocks per SM,
-// threads per block}.
-int drt_flash_online_occupancy(int D, int* out) {
-  const void* fn;
-  size_t smem;
+// Kernel 6 on (B, L, H, D) bf16 q, k, v and the fp32 (B, H, Lq) row bound mb.
+int drt_flash_wgmma_bounded(const void* q, const void* k, const void* v, void* o, const void* mb,
+                            int B, int Lq, int Lk, int H, int D, float q_scale, void* stream) {
+  if (bad_sizes(B, Lq, Lk, H)) return kUnsupported;
+  Args a{static_cast<__nv_bfloat16*>(o), nullptr, nullptr, static_cast<const float*>(mb),
+         B, Lq, Lk, H, q_scale, 0.f, 0};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: fn = kernel_of<64>(); smem = Cfg<64>::smem_bytes; break;
-    case 128: fn = kernel_of<128>(); smem = Cfg<128>::smem_bytes; break;
+    case 64: return launch<64, kBlockK<kBoundedPipe>>(bounded_pipe_kernel<64>, q, k, v, a, st);
+    case 128: return launch<128, kBlockK<kBoundedPipe>>(bounded_pipe_kernel<128>, q, k, v, a, st);
     default: return kUnsupported;
   }
+}
+
+// which: 0 = kernels 1 and 2's launch, 1 = kernel 6.  out = {registers, local
+// (spill) bytes, dynamic shared bytes, resident blocks per SM, threads per block}.
+int drt_flash_wgmma_occupancy(int which, int D, int* out) {
+  KernelFn fn;
+  size_t smem;
+  const int err = kernel_of(which, D, &fn, &smem);
+  if (err != 0) return err;
+  const void* f = reinterpret_cast<const void*>(fn);
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  cudaError_t e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, f);
   int blocks = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, kThreads, smem);
   if (e != cudaSuccess) return e;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;

@@ -1,10 +1,11 @@
 // The headroom rule of _bounded_cond_call (diffusionrenderer_tpu/ops/
 // flash_attention.py:488-491), evaluated on the device by every block of
-// every bf16 attention launch from the stats buffer that headroom_kernel
-// fills: the unshifted exp2(s), its row sum and the PV accumulator all stay
-// finite in fp32.  Kernel 1 (csrc/flash_attention.cu) and kernel 2
-// (csrc/flash_attention_wgmma.cu) run this same code on the same buffer
-// so both take the same branch.
+// every bounded bf16 attention launch from the stats buffer that
+// headroom_kernel fills: the unshifted exp2(s), its row sum and the PV
+// accumulator all stay finite in fp32.  The launch holding kernels 1 and 2
+// (csrc/flash_attention.cu at D = 256 and 512, csrc/flash_attention_wgmma.cu
+// at D = 64 and 128) runs this code in each block, so all its blocks take
+// one branch.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -2,8 +2,10 @@
 
 Counterpart of diffusionrenderer_tpu/ops/flash_attention.py
 (`flash_attention(bounded=..., qk_int8=..., pv_int8=...)`).  The kernels are
-in `csrc/flash_attention.cu` (bf16, mma.sync), `csrc/flash_attention_wgmma.cu`
-(kernel 2, the online softmax, on wgmma and TMA at head dims 64 and 128) and
+in `csrc/flash_attention_wgmma.cu` (kernels 1 and 2 in one launch, and
+kernel 6, on wgmma and TMA at head dims 64 and 128), `csrc/flash_attention.cu`
+(bf16 on mma.sync: kernels 1, 2 and 6 at head dims 256 and 512, kernels 3
+and 7 at every head dim, the headroom kernel) and
 `csrc/flash_attention_int8.cu`; this module holds
 
 * `flash_attention` - the entry point, with the JAX package's signature and
@@ -29,12 +31,16 @@ in `csrc/flash_attention.cu` (bf16, mma.sync), `csrc/flash_attention_wgmma.cu`
   `flash_attention_bounded_plain`).  As in JAX, no dispatcher route reaches
   the first: it is called by name.
 
-`LAUNCHES` counts the launches of the headroom kernel, of
-`flash_attention.cu`'s attention kernel ("flash_attention": kernel 1, and
-at D = 256 and 512 kernels 1 and 2 in one launch), of the wgmma kernel 2
-("flash_attention_online", D = 64 and 128) and of kernel 5;
-`VARIANT_LAUNCHES` those of kernels 3, 6 and 7, which take no headroom
-launch and no branch tally.
+`LAUNCHES` counts the launches of the headroom kernel, of the launch that
+holds kernels 1 and 2 ("flash_attention", one per bf16 attention call at
+every head dim) and of kernel 5; `VARIANT_LAUNCHES` those of kernels 3, 6
+and 7, which take no headroom launch and no branch tally.
+
+The public routes (`flash_attention` in every mode,
+`flash_attention_bounded_shift`, `flash_attention_partial`, `int8_operands`)
+take any strided view: on CUDA they copy q, k and v once to a contiguous,
+16-byte-aligned tensor where they are not one already.  The launch wrappers
+below them refuse what their kernel cannot read.
 
 The branch rule is that of the JAX package (_bounded_cond_call): with q
 pre-scaled by softmax_scale*log2(e) and the row bound m_i = ||q_i|| * max_j
@@ -47,9 +53,13 @@ JAX kernel's own tiling, so both packages pick the same branch for the
 same inputs.  On the card the kernels evaluate the rule themselves from the
 stats buffer that `flash_headroom` fills, so no call waits for the host;
 which branch ran is counted on the device, one per call (`branch_counts`).
-At D = 64 and 128 a bounded call launches kernel 1 and kernel 2 one after
-the other on the stream, each doing nothing when the rule picks the other;
-an unbounded call launches kernel 2 alone.
+A bounded call is one headroom launch and one attention launch; an
+unbounded call is the attention launch alone, in the online branch.
+
+The no-shift and bounded modes take exp2 with weights below 2^-126 flushed
+to zero, as the kernels' ex2.approx.ftz and XLA's CPU backend do: rows
+whose shift overshoots their true max by more than fp32's range come out
+as zeros in both packages.
 """
 
 from __future__ import annotations
@@ -65,23 +75,25 @@ _LOG2E = math.log2(math.e)
 HEADROOM_LIMIT = 120.0
 _LOG2_127 = math.log2(127.0)
 _NEG_INF = -1e30
+_FP32_TINY = 2.0 ** -126  # the smallest normal fp32: exp2 below it flushes to zero
 HEAD_DIMS = (64, 128, 256, 512)
 # Keys per tile of the int8 kernel at each head dim it takes
 # (csrc/flash_attention_int8.cu, drt_flash_int8_block_k).
 INT8_BLOCK_K = {64: 64, 128: 64, 256: 64, 512: 32}
-# Head dims at which kernel 2 is the wgmma kernel (csrc/flash_attention_wgmma.cu).
+# Head dims at which kernels 1, 2 and 6 are the wgmma kernels
+# (csrc/flash_attention_wgmma.cu).
 WGMMA_HEAD_DIMS = (64, 128)
 _JAX_DEFAULT_BLOCK_K = 2816  # diffusionrenderer_tpu/ops/flash_attention.py DEFAULT_BLOCK_K
 
 # Launches of each kernel since the last reset_counts(), counted by its wrapper.
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_online": 0,
-                            "flash_attention_headroom": 0, "flash_attention_int8": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_headroom": 0,
+                            "flash_attention_int8": 0}
 VARIANT_LAUNCHES: Dict[str, int] = {"flash_attention_partial": 0,
                                     "flash_attention_bounded_pipe": 0,
                                     "flash_attention_bounded": 0}
 # Per device, int32[2]: how many bf16 attention calls took the no-shift and
-# the online branch, counted on the device by block (0, 0, 0) of the launch
-# that evaluates the rule (kernel 1's, or kernel 2's in an unbounded call).
+# the online branch, counted on the device by block (0, 0, 0) of the
+# attention launch.
 _tallies: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -181,8 +193,11 @@ def _scores(q, k) -> torch.Tensor:
 
 def _softmax_pv(s, v, *, clamp: bool, dtype):
     """P = exp2(s) of already shifted scores, then (P in v's dtype) V / l:
-    (out (B, Lq, H, D) in dtype, l (B, H, Lq)); clamp: l at 1e-37."""
+    (out (B, Lq, H, D) in dtype, l (B, H, Lq)).  clamp (the no-shift and
+    bounded modes): P below 2^-126 flushed to zero and l clamped at 1e-37."""
     p = torch.exp2(s)
+    if clamp:
+        p = torch.where(p < _FP32_TINY, 0.0, p)
     l = p.sum(dim=-1)
     acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     denom = l.clamp_min(1e-37) if clamp else l
@@ -223,10 +238,10 @@ def row_bound(q, k) -> torch.Tensor:
 
 
 def flash_attention_bounded_plain(q, k, v, mb: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The bounded kernels' function: p = exp2(s - mb_i) with no running max
-    and l clamped at 1e-37, so rows whose bound overshoots their true max by
-    more than fp32's range come out as zeros, as in JAX.  mb defaults to
-    row_bound(q, k)."""
+    """The bounded kernels' function: p = exp2(s - mb_i) with no running max,
+    weights below 2^-126 flushed and l clamped at 1e-37, so rows whose bound
+    overshoots their true max by more than fp32's range come out as zeros,
+    as in JAX.  mb defaults to row_bound(q, k)."""
     mb = row_bound(q, k) if mb is None else mb
     return _softmax_pv(_scores(q, k) - mb[..., None], v, clamp=True, dtype=q.dtype)[0]
 
@@ -338,12 +353,14 @@ def _lib_wgmma() -> ctypes.CDLL:
 
         lib = library("flash_attention_wgmma")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.drt_flash_online.argtypes = [ptr] * 6 + [i32] * 5 + [f32, f32, i32, ptr]
-        lib.drt_flash_online.restype = i32
+        lib.drt_flash_wgmma_attention.argtypes = [ptr] * 6 + [i32] * 5 + [f32, f32, i32, ptr]
+        lib.drt_flash_wgmma_attention.restype = i32
+        lib.drt_flash_wgmma_bounded.argtypes = [ptr] * 5 + [i32] * 5 + [f32, ptr]
+        lib.drt_flash_wgmma_bounded.restype = i32
         lib.drt_flash_wgmma_error_string.argtypes = [i32]
         lib.drt_flash_wgmma_error_string.restype = ctypes.c_char_p
-        lib.drt_flash_online_occupancy.argtypes = [i32, ctypes.POINTER(i32)]
-        lib.drt_flash_online_occupancy.restype = i32
+        lib.drt_flash_wgmma_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
+        lib.drt_flash_wgmma_occupancy.restype = i32
         _wgmma_handle = lib
     return _wgmma_handle
 
@@ -405,9 +422,23 @@ def _check_tma_operand(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name}'s strides {x.stride()} are not multiples of 16 bytes")
 
 
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """x itself when a kernel can read it (contiguous, 16-byte aligned),
+    else a contiguous copy: what the public routes pass their launches."""
+    if x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         msg = _lib().drt_error_string(err).decode()
+        raise RuntimeError(f"{what} failed to launch: {msg} (code {err})")
+
+
+def _raise_on_wgmma(err: int, what: str) -> None:
+    if err != 0:
+        msg = _lib_wgmma().drt_flash_wgmma_error_string(err).decode()
         raise RuntimeError(f"{what} failed to launch: {msg} (code {err})")
 
 
@@ -431,11 +462,9 @@ def flash_headroom(q, k, v) -> torch.Tensor:
 
 
 def flash_attention_kernel(q, k, v, stats: Optional[torch.Tensor]) -> torch.Tensor:
-    """Launch the bf16 attention.  stats (from flash_headroom) lets the
-    kernels choose the branch on the device; None forces the online branch.
-    D = 64, 128: a bounded call launches kernel 1 and then kernel 2 (the
-    wgmma kernel), each exiting when the rule picks the other; an unbounded
-    one launches kernel 2 alone.  D = 256, 512: one launch holds both."""
+    """Launch kernels 1 and 2 (one launch): stats (from flash_headroom) lets
+    its blocks choose the branch on the device; None forces the online
+    branch.  The wgmma kernel at D = 64, 128, mma.sync at D = 256, 512."""
     _check_kernel_inputs(q, k, v)
     b, lq, h, d = q.shape
     if stats is not None and (stats.device != q.device or stats.dtype != torch.float32
@@ -448,30 +477,28 @@ def flash_attention_kernel(q, k, v, stats: Optional[torch.Tensor]) -> torch.Tens
             math.log2(reference_lk_pad(k.shape[1], d)), int(stats is not None),
             _stream(q.device))
     with torch.cuda.device(q.device):
-        if stats is not None or d not in WGMMA_HEAD_DIMS:
-            _raise_on(_lib().drt_flash_attention(*args), "flash_attention")
-            LAUNCHES["flash_attention"] += 1
         if d in WGMMA_HEAD_DIMS:
-            err = _lib_wgmma().drt_flash_online(*args)
-            if err != 0:
-                msg = _lib_wgmma().drt_flash_wgmma_error_string(err).decode()
-                raise RuntimeError(f"flash_attention_online failed to launch: {msg} (code {err})")
-            LAUNCHES["flash_attention_online"] += 1
+            _raise_on_wgmma(_lib_wgmma().drt_flash_wgmma_attention(*args), "flash_attention")
+        else:
+            _raise_on(_lib().drt_flash_attention(*args), "flash_attention")
+    LAUNCHES["flash_attention"] += 1
     return out
 
 
 def kernel_occupancy(kernel: str, d: int, pv_int8: bool = False) -> Dict[str, int]:
     """What the CUDA runtime reports for one kernel at head dim d: registers
     a thread, local (spill) bytes, dynamic shared bytes, resident blocks
-    per SM and threads per block.  kernel: 'noshift' (kernel 1's launch), 'online' (the wgmma
-    kernel 2) or 'int8' (kernel 5, pv_int8 selecting its mode)."""
+    per SM and threads per block.  kernel: 'attention' (the launch holding
+    kernels 1 and 2, any head dim), 'bounded_pipe' (kernel 6 at D = 64, 128)
+    or 'int8' (kernel 5, pv_int8 selecting its mode)."""
     out = (ctypes.c_int * 5)()
-    if kernel == "noshift":
+    if kernel == "attention" and d not in WGMMA_HEAD_DIMS:
         lib = _lib()
         err, why = lib.drt_flash_occupancy(d, out), lib.drt_error_string
-    elif kernel == "online":
+    elif kernel in ("attention", "bounded_pipe"):
         lib = _lib_wgmma()
-        err, why = lib.drt_flash_online_occupancy(d, out), lib.drt_flash_wgmma_error_string
+        err = lib.drt_flash_wgmma_occupancy(int(kernel == "bounded_pipe"), d, out)
+        why = lib.drt_flash_wgmma_error_string
     elif kernel == "int8":
         lib = _lib_int8()
         err, why = lib.drt_flash_int8_occupancy(d, int(pv_int8), out), lib.drt_flash_int8_error_string
@@ -501,20 +528,23 @@ def flash_attention_partial_kernel(q, k, v):
 
 
 def flash_attention_bounded_kernel(q, k, v, mb: torch.Tensor, *, pipelined: bool) -> torch.Tensor:
-    """Launch kernel 6 (pipelined) or 7 on the row bound mb (fp32 (B, H, Lq),
-    from row_bound)."""
+    """Launch kernel 6 (pipelined: the wgmma kernel at D = 64, 128) or 7 on
+    the row bound mb (fp32 (B, H, Lq), from row_bound)."""
     _check_kernel_inputs(q, k, v)
     b, lq, h, d = q.shape
     if (mb.device != q.device or mb.dtype != torch.float32 or tuple(mb.shape) != (b, h, lq)
             or not mb.is_contiguous()):
         raise ValueError(f"mb must be a contiguous fp32 ({b}, {h}, {lq}) tensor on {q.device}")
     out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), mb.data_ptr(),
+            b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype))
     with torch.cuda.device(q.device):
-        err = _lib().drt_flash_attention_bounded(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), mb.data_ptr(),
-            b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype), int(pipelined),
-            _stream(q.device))
-    _raise_on(err, "flash_attention_bounded")
+        if pipelined and d in WGMMA_HEAD_DIMS:
+            _raise_on_wgmma(_lib_wgmma().drt_flash_wgmma_bounded(*args, _stream(q.device)),
+                            "flash_attention_bounded")
+        else:
+            _raise_on(_lib().drt_flash_attention_bounded(*args, int(pipelined), _stream(q.device)),
+                      "flash_attention_bounded")
     VARIANT_LAUNCHES["flash_attention_bounded_pipe" if pipelined
                      else "flash_attention_bounded"] += 1
     return out
@@ -537,7 +567,8 @@ class Int8Operands(NamedTuple):
 def int8_operands(q, k, v, *, pv_int8: bool = False) -> Int8Operands:
     """The int8 kernel's pre-passes (plain torch, as JAX left them to XLA).
     The V channel scales reduce over all tokens, so they finish before the
-    kernel starts."""
+    kernel starts.  Any strided view of (B, L, H, D) q, k, v."""
+    q, k, v = _dense(q), _dense(k), _dense(v)
     _check_kernel_inputs(q, k, v)
     qi, sq = _quant_rows_int8(q_prescale(q))
     ki, sk = _quant_rows_int8(k)
@@ -594,6 +625,7 @@ def flash_attention(q, k, v, block_q: Optional[int] = None, block_k: Optional[in
         if bounded and pipelined:
             return flash_attention_bounded_plain(q, k, v)
         return flash_attention_plain(q, k, v, bounded=bounded)
+    q, k, v = _dense(q), _dense(k), _dense(v)
     if bounded and pipelined:
         return flash_attention_bounded_kernel(q, k, v, row_bound(q, k), pipelined=True)
     if int8:
@@ -613,6 +645,7 @@ def flash_attention_bounded_shift(q, k, v) -> torch.Tensor:
     tensors, kernel 7 for CUDA tensors."""
     if q.device.type == "cpu":
         return flash_attention_bounded_plain(q, k, v)
+    q, k, v = _dense(q), _dense(k), _dense(v)
     return flash_attention_bounded_kernel(q, k, v, row_bound(q, k), pipelined=False)
 
 
@@ -627,4 +660,4 @@ def flash_attention_partial(q, k, v, block_q: Optional[int] = None,
     for CUDA tensors; block_q and block_k leave the result unchanged."""
     if q.device.type == "cpu":
         return flash_attention_partial_plain(q, k, v)
-    return flash_attention_partial_kernel(q, k, v)
+    return flash_attention_partial_kernel(_dense(q), _dense(k), _dense(v))

@@ -7,14 +7,18 @@ a card and no JAX (tests/conftest.py imports JAX; skip it there):
 
 Every test is marked `cuda` and skips without a CUDA device.  Tolerances:
 the attention kernels compute in bf16 with fp32 softmax state and round
-where the plain version rounds (kernel 2 at D = 64 and 128 on wgmma, the
-others on mma.sync), so outputs differ by about one bf16 ulp on
+where the plain version rounds (kernels 1, 2 and 6 at D = 64 and 128 on
+wgmma, the others on mma.sync), so outputs differ by about one bf16 ulp on
 a few elements: max |err| within 2e-2 of max |plain| (no floor) and a
 relative L2 error within 1e-2; the int8 attention kernel is held to its
 plain version at the kernel's own key tile; the partial-stats kernel's m and
-l and the bounded kernels' outputs to the same limits, and the pipelined
-bounded kernel bitwise to the unpipelined one (same operations in the same
-order per tile).  The W8A8 matmul kernel is
+l and the bounded kernels' outputs to the same limits.  Kernel 6 is held
+bitwise to kernel 7 at D = 256 and 512, where both are the one mma.sync
+body with the same operations in the same order per tile; at D = 64 and 128
+kernel 6 is the wgmma body, held to kernel 7 and to its plain version at
+the limits above.  A bounded bf16 call is one headroom launch and one
+attention launch (kernels 1 and 2 in one grid) at every head dim, and every
+public route takes a strided view.  The W8A8 matmul kernel is
 bitwise equal to its plain version per channel (exact int32 core, the same
 fp32 epilogue); grouped, within one bf16 ulp of max |plain| and a relative
 L2 error of 1e-3."""
@@ -29,7 +33,7 @@ from diffusionrenderer_tpu_torch.models.dit import dit_forward, init_dit_params
 from diffusionrenderer_tpu_torch.models.quant import quantize_dit_params, quantize_tensor
 from diffusionrenderer_tpu_torch.ops import flash_attention as tfa
 from diffusionrenderer_tpu_torch.ops import quant_matmul as tqm
-from diffusionrenderer_tpu_torch.ops.attention import attention_xla
+from diffusionrenderer_tpu_torch.ops.attention import attention, attention_xla
 
 pytestmark = pytest.mark.cuda
 
@@ -69,10 +73,9 @@ def test_kernel_matches_plain(cuda, b, lq, lk, h, d, q_scale, branch):
     got = tfa.flash_attention(q, k, v, bounded=True)
     want = tfa.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
-    # D = 64, 128: kernel 1 and the wgmma kernel 2, one of them writing.
-    wgmma = int(d in tfa.WGMMA_HEAD_DIMS)
-    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_online": wgmma,
-                            "flash_attention_headroom": 1, "flash_attention_int8": 0}
+    # One attention launch holds both branches at every head dim.
+    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_headroom": 1,
+                            "flash_attention_int8": 0}
     assert tfa.branch_counts(cuda) == {"noshift": int(branch == "noshift"),
                                        "online": int(branch == "online")}
     assert_close(got, want)
@@ -82,13 +85,13 @@ def test_onlinemax_forced(cuda):
     q, k, v = qkv(cuda, 1, 512, 512, 2, 128)
     tfa.reset_counts()
     got = tfa.flash_attention(q, k, v, bounded=False)
-    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_online": 1,
-                            "flash_attention_headroom": 0, "flash_attention_int8": 0}
+    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_headroom": 0,
+                            "flash_attention_int8": 0}
     assert tfa.branch_counts(cuda) == {"noshift": 0, "online": 1}
     assert_close(got, tfa.flash_attention_plain(q, k, v, bounded=False))
 
 
-# Kernel 2's wgmma body: ragged lengths (Lk not a multiple of the key tile,
+# The wgmma body of kernels 1, 2 and 6: ragged lengths (Lk not a multiple of the key tile,
 # Lq not of the 64-row block), keys fewer than one tile, and enough blocks for
 # several waves of two blocks per SM on 132 SMs.
 WGMMA_CASES = [(2, 1000, 777, 4, 128), (2, 1000, 777, 4, 64), (1, 100, 40, 2, 128),
@@ -102,23 +105,39 @@ def test_wgmma_online_kernel_matches_plain(cuda, b, lq, lk, h, d, q_scale):
     tfa.reset_counts()
     got = tfa.flash_attention(q, k, v, bounded=False)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_online": 1,
-                            "flash_attention_headroom": 0, "flash_attention_int8": 0}
+    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_headroom": 0,
+                            "flash_attention_int8": 0}
     assert tfa.branch_counts(cuda) == {"noshift": 0, "online": 1}
     assert_close(got, tfa.flash_attention_plain(q, k, v, bounded=False))
 
 
+@pytest.mark.parametrize("b,lq,lk,h,d", WGMMA_CASES)
+@pytest.mark.parametrize("q_scale,branch", [(1.0, "noshift"), (100.0, "online")])
+def test_wgmma_bounded_call_is_one_launch(cuda, b, lq, lk, h, d, q_scale, branch):
+    """Kernel 1 (unit-scale logits) or kernel 2 (the rule's online branch)
+    from one attention launch after the headroom launch."""
+    q, k, v = qkv(cuda, b, lq, lk, h, d, q_scale, seed=lq + lk + d + 1)
+    tfa.reset_counts()
+    got = tfa.flash_attention(q, k, v, bounded=True)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_headroom": 1,
+                            "flash_attention_int8": 0}
+    assert tfa.branch_counts(cuda) == {"noshift": int(branch == "noshift"),
+                                       "online": int(branch == "online")}
+    assert_close(got, tfa.flash_attention_plain(q, k, v, bounded=True))
+
+
 @pytest.mark.parametrize("d", [64, 128])
 def test_bounded_call_takes_each_branch_through_its_kernel(cuda, d):
-    """A bounded call at D = 64, 128 launches kernels 1 and 2; with large
-    logits the rule picks the online branch and kernel 2 writes the output,
-    with unit-RMS inputs kernel 1 does; the tally counts one branch a call."""
+    """A bounded call at D = 64, 128 is one attention launch: with large
+    logits its blocks take the online branch (kernel 2), with unit-RMS
+    inputs the no-shift one (kernel 1); the tally counts one branch a call."""
     for q_scale, branch in ((100.0, "online"), (1.0, "noshift")):
         q, k, v = qkv(cuda, 2, 1000, 777, 4, d, q_scale, seed=d)
         tfa.reset_counts()
         got = tfa.flash_attention(q, k, v, bounded=True)
         torch.cuda.synchronize()
-        assert tfa.LAUNCHES["flash_attention"] == 1 and tfa.LAUNCHES["flash_attention_online"] == 1
+        assert tfa.LAUNCHES["flash_attention"] == 1
         assert tfa.branch_counts(cuda) == {"noshift": int(branch == "noshift"),
                                            "online": int(branch == "online")}
         assert_close(got, tfa.flash_attention_plain(q, k, v, bounded=True))
@@ -127,15 +146,12 @@ def test_bounded_call_takes_each_branch_through_its_kernel(cuda, d):
 
 
 def test_kernel_occupancy(cuda):
-    """No spills; kernel 1 keeps its resources at D = 128 (at most 169
-    registers and 69,632 bytes of dynamic shared memory, two blocks per SM);
-    the wgmma kernels keep at least 8 warps per SM resident."""
-    k1 = tfa.kernel_occupancy("noshift", 128)
-    assert k1["registers"] <= 169 and k1["dynamic_smem_bytes"] <= 69632
-    assert k1["blocks_per_sm"] >= 2 and k1["spill_bytes"] == 0
-    for kernel, d, pv8 in (("online", 64, False), ("online", 128, False), ("int8", 64, False),
-                           ("int8", 128, False), ("int8", 128, True), ("int8", 256, False),
-                           ("int8", 256, True)):
+    """No spills, and at least 8 warps per SM resident, for the wgmma kernels:
+    the launch of kernels 1 and 2 and kernel 6 at D = 64 and 128, and kernel 5."""
+    for kernel, d, pv8 in (("attention", 64, False), ("attention", 128, False),
+                           ("bounded_pipe", 64, False), ("bounded_pipe", 128, False),
+                           ("int8", 64, False), ("int8", 128, False), ("int8", 128, True),
+                           ("int8", 256, False), ("int8", 256, True)):
         occ = tfa.kernel_occupancy(kernel, d, pv8)
         warps = occ["blocks_per_sm"] * occ["threads_per_block"] // 32
         assert occ["spill_bytes"] == 0 and warps >= 8, (kernel, d, pv8, occ)
@@ -148,14 +164,52 @@ def test_headroom_stats_match_plain(cuda):
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """The public routes copy a strided view; the launch wrappers refuse one."""
     q, k, v = qkv(cuda, 1, 64, 64, 2, 128)
     with pytest.raises(TypeError):
         tfa.flash_attention(q.float(), k.float(), v.float())
     with pytest.raises(ValueError):
         tfa.flash_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
                             v[..., :96].contiguous())
-    with pytest.raises(ValueError):
-        tfa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_kernel(*views, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_partial_kernel(*views)
+
+
+# Each public route, on CUDA: (name, call).  Views are copied once to a
+# contiguous, 16-byte-aligned tensor before the launch.
+VIEW_ROUTES = {
+    "bounded": lambda q, k, v: tfa.flash_attention(q, k, v, bounded=True),
+    "online": lambda q, k, v: tfa.flash_attention(q, k, v),
+    "bounded_pipelined": lambda q, k, v: tfa.flash_attention(q, k, v, bounded=True, pipelined=True),
+    "bounded_shift": tfa.flash_attention_bounded_shift,
+    "qk_int8": lambda q, k, v: tfa.flash_attention(q, k, v, qk_int8=True),
+    "pv_int8": lambda q, k, v: tfa.flash_attention(q, k, v, pv_int8=True),
+    "partial": tfa.flash_attention_partial,
+    "int8_operands": lambda q, k, v: tfa.flash_attention_int8_launch(tfa.int8_operands(q, k, v)),
+    "attention_pallas": lambda q, k, v: attention(q, k, v, backend="pallas"),
+    "attention_auto": lambda q, k, v: attention(q, k, v),
+}
+
+
+@pytest.mark.parametrize("d", [64, 128, 512])
+@pytest.mark.parametrize("route", sorted(VIEW_ROUTES))
+def test_transposed_view_through_each_route(cuda, route, d):
+    q, k, v = qkv(cuda, 2, 300, 260, 2, d, seed=d)
+    # Stored (B, H, L, D), read as (B, L, H, D); and one at an odd offset.
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    assert not any(x.is_contiguous() for x in views)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16 != 0
+    call = VIEW_ROUTES[route]
+    want = call(q, k, v)
+    for got in (call(*views), call(shifted, k, v)):
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w)
 
 
 def test_dit_forward_kernel_vs_plain_attention(cuda):
@@ -220,8 +274,8 @@ def test_int8_attention_kernel_matches_plain(cuda, b, lq, lk, h, d, pv8):
     tfa.reset_counts()
     got = tfa.flash_attention(q, k, v, qk_int8=True, pv_int8=pv8)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_online": 0,
-                            "flash_attention_headroom": 0, "flash_attention_int8": 1}
+    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_headroom": 0,
+                            "flash_attention_int8": 1}
     assert_close(got, tfa.flash_attention_int8_plain(q, k, v, pv_int8=pv8,
                                                      block_k=tfa.INT8_BLOCK_K[d]))
     # Within the JAX package's int8 bounds of exact attention, or of what the
@@ -313,10 +367,74 @@ def test_bounded_kernels_match_plain(cuda, b, lq, lk, h, d, aligned):
                                     "flash_attention_bounded": 1}
     assert sum(tfa.LAUNCHES.values()) == 0
     assert tfa.branch_counts(cuda) == {"noshift": 0, "online": 0}
-    assert torch.equal(pipe, shift)
+    if d in tfa.WGMMA_HEAD_DIMS:  # kernel 6 on wgmma, kernel 7 on mma.sync
+        assert_close(pipe, tfa.flash_attention_bounded_plain(q, k, v))
+        assert_close(pipe, shift)
+    else:  # one mma.sync body, the same operations in the same order per tile
+        assert torch.equal(pipe, shift)
     assert_close(shift, tfa.flash_attention_bounded_plain(q, k, v))
     if aligned:  # the shift keeps the bounded softmax exact where exp2(s) overflows
         assert_close(shift, tfa.flash_attention_plain(q, k, v, bounded=False))
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", WGMMA_CASES)
+@pytest.mark.parametrize("aligned", [False, True], ids=["random", "aligned_x10"])
+def test_wgmma_kernel6_matches_plain_and_kernel7(cuda, b, lq, lk, h, d, aligned):
+    q, k, v = (aligned_qkv(cuda, b, lq, lk, h, d, 10.0, seed=lq + d) if aligned
+               else qkv(cuda, b, lq, lk, h, d, seed=lq + lk + d + 2))
+    mb = tfa.row_bound(q, k)
+    tfa.reset_counts()
+    got = tfa.flash_attention_bounded_kernel(q, k, v, mb, pipelined=True)
+    torch.cuda.synchronize()
+    assert tfa.VARIANT_LAUNCHES["flash_attention_bounded_pipe"] == 1
+    assert_close(got, tfa.flash_attention_bounded_plain(q, k, v, mb))
+    assert_close(got, tfa.flash_attention_bounded_kernel(q, k, v, mb, pipelined=False))
+
+
+def band_qkv(device):
+    """fp32's underflow band in bf16: numpy default_rng(0) standard normals,
+    (1, 256, 2, 64), q x 14 (rows whose row bound overshoots their true max
+    by 104 to 187 log2 units: most flush to zero)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 256, 2, 64)).astype(np.float32))
+               for _ in range(3))
+    return (q * 14).to(device).bfloat16(), k.to(device).bfloat16(), v.to(device).bfloat16()
+
+
+def noshift_band_qkv(device):
+    """No-shift inputs with rows whose every weight is below 2^-126: keys
+    of norm 9.9 to 10 along one direction, queries against it with scores
+    near -80 (even rows) or below -126 (odd rows), max |v| = 2^-18."""
+    g = torch.Generator(device).manual_seed(1)
+    u = torch.randn(64, generator=g, device=device)
+    u = u / u.norm()
+    a = 9.9 + 0.1 * torch.rand(1, 256, 2, 1, generator=g, device=device)
+    k = a * u + 0.01 * torch.randn(1, 256, 2, 64, generator=g, device=device)
+    qn = torch.where(torch.arange(128, device=device) % 2 == 0, 8.0, 12.9)[None, :, None, None]
+    q = (-qn * u / (64 ** -0.5 * math.log2(math.e))).expand(1, 128, 2, 64)
+    v = torch.randn(1, 256, 2, 64, generator=g, device=device)
+    v = v * (2.0 ** -18 / v.abs().max())
+    return q.bfloat16().contiguous(), k.bfloat16(), v.bfloat16()
+
+
+def test_underflow_band_kernels_1_and_6(cuda):
+    """Weights below 2^-126 flush to zero in the kernels (ex2.approx.ftz) as
+    in the plain versions: kernel 6 on the q x 14 case, kernel 1 on rows
+    whose every weight is below 2^-126."""
+    q, k, v = band_qkv(cuda)
+    want = tfa.flash_attention_bounded_plain(q, k, v)
+    assert (want.float().abs().amax(-1) == 0).float().mean() > 0.5
+    assert_close(tfa.flash_attention(q, k, v, bounded=True, pipelined=True), want)
+    q, k, v = noshift_band_qkv(cuda)
+    tfa.reset_counts()
+    got = tfa.flash_attention(q, k, v, bounded=True)
+    torch.cuda.synchronize()
+    assert tfa.branch_counts(cuda) == {"noshift": 1, "online": 0}
+    want = tfa.flash_attention_plain(q, k, v, bounded=True)
+    assert bool((want[:, 1::2] == 0).all()) and bool((got[:, 1::2] == 0).all())
+    assert_close(got, want)
 
 
 @pytest.mark.parametrize("mode", ["cubemap", "direct", "ball"])
