@@ -13,10 +13,11 @@ Phases (any failure raises and exits non-zero):
                HDR codec (csrc/*.cc, host compiler, zlib); print ptxas's
                registers and spills, and the registers, spills, dynamic shared
                memory and resident blocks per SM of the launch holding kernels
-               1 and 2 (D = 64, 128, 512), kernel 6 (D = 64, 128) and kernel 5
-               (D = 128, 256) from the CUDA runtime.  Fails on a spill or a
-               serialized wgmma in the wgmma kernels, and if one of them keeps
-               fewer than 8 warps per SM resident.
+               1 and 2 (D = 64, 128, 512), kernels 6 and 7 (D = 64, 128),
+               kernel 5 (D = 128, 256) and kernel 4 (per channel, grouped)
+               from the CUDA runtime.  Fails on a spill or a serialized wgmma
+               in the wgmma kernels, and if one of them keeps fewer than 8
+               warps per SM resident.
   3. kernels - the bf16 attention kernels vs their plain PyTorch version,
                each bounded call one headroom and one attention launch: both
                branches (kernel 1 no-shift, kernel 2 online) at D = 128 and 64
@@ -32,7 +33,9 @@ Phases (any failure raises and exits non-zero):
                calls); output checked against the plain version on 2 heads.
   5. W8A8 matmul kernel vs its plain version at the DiT's three block
                matmul shapes, per channel and g128, plus ragged M, g32 and
-               g512; timed beside torch._int_mm and bf16 F.linear.
+               g512, and the wgmma body's edges (a k32 step across K, partial
+               tiles, M = 64, g256, fp32 output); timed beside torch._int_mm
+               and bf16 F.linear, with each shape's share of its bound.
   6. int8 attention kernel vs its plain version (at the kernel's key tile)
                and vs attention_xla, qk8 and qk8+pv8, at the DiT shape and a
                ragged one; the flagship shape timed beside SDPA and the bf16
@@ -49,18 +52,20 @@ Phases (any failure raises and exits non-zero):
   10. quantized main path - the same inverse_render() under
                load_pipeline(quantize_int8=True, act_quant=True) (w8a8) and
                with quant_group_size=128 (w8a8_g128): every block matmul
-               launches the W8A8 kernel (6 x 28 x 15 per call).
+               launches the W8A8 kernel (6 x 28 x 15 per call); 5 warm calls
+               each (median and quartiles).
   11. quantized reference - one W8A8 DiT forward through the kernels vs
                through the plain versions, and vs the bf16 forward.
   12. int8 attention path - one W8A8 DiT forward with
                attn_backend='pallas_pv_int8': 28 int8 attention launches.
-  13. profile of one W8A8 DiT forward, and the activation pre-pass time.
+  13. profile of one W8A8 and one W8A8-g128 DiT forward, and the
+               activation pre-pass time.
   14. kernels 3, 6 and 7 vs their plain versions: the partial-stats kernel
                (out, m and l) and the two bounded-shift kernels at the DiT,
                forward and 9-frame shapes, D = 64, ragged lengths, fewer keys
                than one tile, the VAE's D=512 and fp32's underflow band;
-               kernel 6 (wgmma at D = 64, 128) also against kernel 7 within
-               the same limits, and bitwise at D = 512 (one mma.sync body).
+               kernel 6 bitwise against kernel 7 at every head dim (one
+               wgmma body at D = 64, 128, one mma.sync body at 512).
   15. ring merge on one card - the flagship shape's keys in 4 shards,
                kernel 3 on each, merged by the ring's _merge and normalized,
                against kernel 2's exact attention over all keys.
@@ -74,8 +79,8 @@ Phases (any failure raises and exits non-zero):
   17. bounded-shift DiT forwards - one DiT forward with
                flash_attention(bounded=True, pipelined=True) as its attention
                (kernel 6, 28 launches) and one with
-               flash_attention_bounded_shift (kernel 7): within bf16 noise of
-               each other and of the kernel path's forward.
+               flash_attention_bounded_shift (kernel 7): bitwise equal to each
+               other, and within bf16 noise of the kernel path's forward.
   18. timings of kernels 3, 6 and 7 at the DiT and flagship shapes beside
                kernel 2 and their yardsticks.
   19. kernel 5 at head dims 512 and 256 (the VAE's (1|5, 4096, 1, 512), a
@@ -306,7 +311,7 @@ def device_phase():
 # ptxas reports wgmma.mma_async serialized (the whole function's wgmma then
 # run one at a time) with this phrase.
 SERIALIZED = "wgmma.mma_async instructions are serialized"
-WGMMA_SOURCES = ("flash_attention_wgmma", "flash_attention_int8")
+WGMMA_SOURCES = ("flash_attention_wgmma", "flash_attention_int8", "quant_matmul")
 # Resident warps per SM the wgmma kernels must keep: two warpgroups.
 MIN_WGMMA_WARPS = 8
 
@@ -317,6 +322,7 @@ def build_phase():
     from diffusionrenderer_tpu_torch import io as tio
     from diffusionrenderer_tpu_torch.ops import cuda_build
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.ops import quant_matmul as qm
 
     t0 = time.perf_counter()
     # The HDR codec (host C++ compiler, zlib) builds beside the nvcc jobs.
@@ -348,10 +354,13 @@ def build_phase():
                       if m.group(1) != "0" or m.group(2) != "0"]
             check(not spills, f"{name}.cu: ptxas reports spills: {spills}")
     # The launch holding kernels 1 and 2 (wgmma at D = 64, 128; mma.sync at
-    # 512), kernel 6 on wgmma, kernel 5.
+    # 512), kernels 6 and 7 on wgmma, kernel 5, kernel 4.
     occ = {f"kernel12_attention_d{d}": fa.kernel_occupancy("attention", d) for d in (64, 128, 512)}
     for d in (64, 128):
         occ[f"kernel6_bounded_pipe_d{d}"] = fa.kernel_occupancy("bounded_pipe", d)
+        occ[f"kernel7_bounded_d{d}"] = fa.kernel_occupancy("bounded", d)
+    occ["kernel4_w8a8_per_channel"] = qm.kernel_occupancy(False)
+    occ["kernel4_w8a8_grouped"] = qm.kernel_occupancy(True)
     for d in (128, 256):
         for pv8 in (False, True):
             occ[f"kernel5_d{d}_{'pv8' if pv8 else 'qk8'}"] = fa.kernel_occupancy("int8", d, pv8)
@@ -535,9 +544,9 @@ def qmm_bound(m, k, n, groups):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def qmm_case(m, k, n, group, *, seed, timed):
+def qmm_case(m, k, n, group, *, seed, timed, out_dtype="bfloat16"):
     """Kernel 4 vs its plain version on DiT-like activations and weights
-    quantized by the port; returns the case's record."""
+    quantized by the port, writing out_dtype; returns the case's record."""
     import torch
     import torch.nn.functional as F
     from diffusionrenderer_tpu_torch.models.quant import quantize_tensor
@@ -549,14 +558,15 @@ def qmm_case(m, k, n, group, *, seed, timed):
     leaf = quantize_tensor(w, act_quant=True, group_size=group)
     wq, sa = leaf["q"], leaf["sa"]
     xq, dq = qm.quantize_activation_fp32(x)
+    dtype = getattr(torch, out_dtype)
     qm.reset_counts()
-    got = qm.quant_matmul_w8a8_kernel(xq, dq, wq, sa, torch.bfloat16)
+    got = qm.quant_matmul_w8a8_kernel(xq, dq, wq, sa, dtype)
     torch.cuda.synchronize()
     launches = qm.LAUNCHES["quant_matmul_w8a8"]
-    want = qm.quant_matmul_w8a8_plain(xq, dq, wq, sa, torch.bfloat16)
+    want = qm.quant_matmul_w8a8_plain(xq, dq, wq, sa, dtype)
     diff = (got.float() - want.float()).abs()
     wmax = want.float().abs().max().item()
-    rec = {"shape_mkn": [m, k, n], "group": group, "launches": launches,
+    rec = {"shape_mkn": [m, k, n], "group": group, "out_dtype": out_dtype, "launches": launches,
            "bitwise_equal": bool(torch.equal(got, want)), "max_abs_err": diff.max().item(),
            "ulp_of_max": bf16_ulp(wmax),
            "rel_l2": (diff.norm() / want.float().norm()).item()}
@@ -578,6 +588,8 @@ def qmm_case(m, k, n, group, *, seed, timed):
         rec["library_ms"] = time_ms(lambda: torch._int_mm(xq, wq.T), 20)
         rec["linear_bf16_ms"] = time_ms(lambda: F.linear(x, w), 20)
         rec["tops"] = 2 * m * n * k / rec["ms"] / 1e9
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["vs_library"] = rec["ms"] / rec["library_ms"]
     say("  w8a8 " + json.dumps(rec))
     return rec
 
@@ -591,6 +603,16 @@ def qmm_phase():
     for m, k, n, group in ((1000, 4096, 4096, None), (1000, 4096, 4096, 128),
                            (5120, 4096, 4096, 32), (5120, 4096, 4096, 512)):
         recs.append(qmm_case(m, k, n, group, seed=30 + m % 7 + (group or 0), timed=group == 512))
+    # The wgmma body's edges: a k32 step across K, partial tiles, one
+    # warpgroup's rows, a group spanning two stages, k32 steps past K in
+    # grouped mode, and the fp32-output kernels.
+    for m, k, n, group, out in ((77, 48, 100, None, "bfloat16"), (64, 4096, 4096, None, "bfloat16"),
+                                (64, 4096, 4096, 128, "bfloat16"), (77, 512, 100, 256, "bfloat16"),
+                                (1000, 4096, 4096, 256, "bfloat16"), (77, 96, 100, 32, "bfloat16"),
+                                (77, 48, 100, None, "float32"), (1000, 4096, 4096, None, "float32"),
+                                (1000, 4096, 4096, 128, "float32")):
+        recs.append(qmm_case(m, k, n, group, seed=40 + m % 7 + k % 5 + (group or 0),
+                             timed=False, out_dtype=out))
     return recs
 
 
@@ -1150,7 +1172,7 @@ def kernel_records(main_rec, errs, quant, var, occ):
                      "_bounded_cond_call evaluates before its lax.cond; bound at :559)",
          "launches": main["flash_attention_headroom"], "max_abs_err": errs[1],
          **head_shapes[0], "main_path_shapes": head_shapes},
-        w8a8_record(quant),
+        w8a8_record(quant, occ),
         int8_attention_record(quant, occ),
         *variant_records(var, occ, [{"shape": r["shape"], **{k_: r[k_] for k_ in kernel6_keys
                                                              if k_ in r}}
@@ -1159,7 +1181,7 @@ def kernel_records(main_rec, errs, quant, var, occ):
     return records
 
 
-def w8a8_record(quant):
+def w8a8_record(quant, occ):
     """Kernel 4 at the DiT's (5120, 4096, 4096) per-channel matmul, its
     other main-path shapes and modes beside it."""
     timed = [r for r in quant["qmm"] if "ms" in r]
@@ -1168,14 +1190,18 @@ def w8a8_record(quant):
             "prepass_ms")
     return {"name": "quant_matmul_w8a8", "route": "cuda",
             "source": "diffusionrenderer_tpu_torch/csrc/quant_matmul.cu",
+            "body": "wgmma m64n256k32 (per channel) / m64n128k32 (grouped) s8, TMA, "
+                    "4-stage mbarrier ring, producer warp",
             "replaces": "diffusionrenderer_tpu/ops/quant_matmul.py:70 (_kernel, "
                         "pallas_call at :230)",
             "launches": quant["w8a8"]["launches"]["quant_matmul_w8a8"],
             "launches_w8a8_g128": quant["w8a8_g128"]["launches"]["quant_matmul_w8a8"],
             "max_abs_err": max(r["max_abs_err"] for r in quant["qmm"]),
             **{k: head[k] for k in keys}, "library": "torch._int_mm (int32 product only)",
-            "main_path_shapes": [{k: r[k] for k in ("shape_mkn", "group", "tops", *keys)}
+            "main_path_shapes": [{k: r[k] for k in ("shape_mkn", "group", "tops",
+                                                    "share_of_bound", "vs_library", *keys)}
                                  for r in timed],
+            "occupancy": {k: v for k, v in occ.items() if k.startswith("kernel4")},
             "prepass_ms_per_dit_forward": quant["prepass_ms_per_forward"]}
 
 
@@ -1225,9 +1251,9 @@ def bounded_bound(shape):
 
 def variant_case(name, shape, *, rms_normed=True, seed=0, inputs=None):
     """Kernels 3, 6 and 7 vs their plain versions on one input (make_qkv's,
-    or `inputs`); kernel 6 vs kernel 7 within the same limits at D = 64 and
-    128 (wgmma vs mma.sync), bitwise at 256 and 512 (one mma.sync body).
-    Returns the case's record."""
+    or `inputs`); kernel 6 bitwise against kernel 7 (one wgmma body at D =
+    64 and 128, one mma.sync body at 256 and 512: the same operations in the
+    same order per tile).  Returns the case's record."""
     import torch
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
 
@@ -1252,8 +1278,7 @@ def variant_case(name, shape, *, rms_normed=True, seed=0, inputs=None):
                     "rel_l2": rel}
     say("  variants " + json.dumps(rec))
     check(all(oks.values()), f"{name}: kernel 3, 6 or 7 disagrees: {oks}")
-    if shape[4] not in fa.WGMMA_HEAD_DIMS:
-        check(rec["kernel6_bitwise_kernel7"], f"{name}: kernel 6 is not bitwise equal to kernel 7")
+    check(rec["kernel6_bitwise_kernel7"], f"{name}: kernel 6 is not bitwise equal to kernel 7")
     check(launches == {"flash_attention": 0, "flash_attention_headroom": 0,
                        "flash_attention_int8": 0, "flash_attention_partial": 1,
                        "flash_attention_bounded_pipe": 1, "flash_attention_bounded": 1},
@@ -1409,10 +1434,10 @@ def sharded_forward_phase(pipe, mesh):
 def bounded_forward_phase(params):
     """The bounded-shift entry points on the DiT: one forward with
     flash_attention(bounded=True, pipelined=True) as its attention (kernel
-    6, on wgmma at D = 128), one with flash_attention_bounded_shift (kernel
-    7, mma.sync): each within bf16 noise of the other and of the kernel
-    path's forward (relative L2 2e-2, the limit for 28 bf16 blocks that
-    phases 8 and 16 use)."""
+    6), one with flash_attention_bounded_shift (kernel 7), both on the wgmma
+    body at D = 128: bitwise equal to each other, and within bf16 noise of
+    the kernel path's forward (relative L2 2e-2, the limit for 28 bf16
+    blocks that phases 8 and 16 use)."""
     import functools
 
     import torch
@@ -1445,7 +1470,7 @@ def bounded_forward_phase(params):
     say("bounded_forward " + json.dumps(rec))
     check(rec["kernel6_launches"] == net.num_blocks and rec["kernel7_launches"] == net.num_blocks,
           f"bounded forwards: launches {pipe_launches} / {shift_launches}")
-    check(rec["kernel6_vs_kernel7_rel_l2"] <= 2e-2, "kernel-6 forward vs the kernel-7 forward")
+    check(rec["bitwise_equal"], "the kernel-6 forward is not bitwise equal to the kernel-7 forward")
     check(rec["finite"] and rec["vs_kernel_path_rel_l2"] <= 2e-2
           and rec["kernel6_vs_kernel_path_rel_l2"] <= 2e-2, "bounded forwards vs the kernel path")
     return rec
@@ -1519,7 +1544,8 @@ def variant_records(var, occ, kernel6_shapes):
          "flagship": {k: flag[k] for k in ("kernel3_ms", "kernel3_bound_ms", "library_lse_ms",
                                            "kernel3_plain_ms_2_heads", "kernel2_ms")}},
         {"name": "flash_attention_bounded_pipe", **common,
-         "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu",
+         "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu "
+                   "bounded_kernel<D, kBoundedPipe>",
          "source_d256_d512": src + " attend<D, kBoundedPipe>",
          "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:262 (_flash_kernel_bounded_pipe)",
          "launches": var["bounded_forward"]["kernel6_launches"],
@@ -1532,6 +1558,9 @@ def variant_records(var, occ, kernel6_shapes):
                                            "bounded_plain_ms_2_heads", "row_bound_ms")},
          "occupancy_d128": occ["kernel6_bounded_pipe_d128"], "main_path_shapes": kernel6_shapes},
         {"name": "flash_attention_bounded", **common,
+         "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu "
+                   "bounded_kernel<D, kBounded>",
+         "source_d256_d512": src + " attend<D, kBounded>",
          "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:130 (_flash_kernel_bounded)",
          "launches": var["bounded_forward"]["kernel7_launches"],
          "launches_path": "dit_forward(attn_backend=flash_attention_bounded_shift)",
@@ -1540,7 +1569,8 @@ def variant_records(var, occ, kernel6_shapes):
          "library_ms": dit["library_ms"], "library": "F.scaled_dot_product_attention bf16",
          "row_bound_prepass_ms": dit["row_bound_ms"],
          "flagship": {k: flag[k] for k in ("kernel7_ms", "bounded_bound_ms", "library_ms",
-                                           "bounded_plain_ms_2_heads", "row_bound_ms")}},
+                                           "bounded_plain_ms_2_heads", "row_bound_ms")},
+         "occupancy_d128": occ["kernel7_bounded_d128"]},
     ]
 
 
@@ -1876,7 +1906,8 @@ def main() -> int:
     say(f"  phase 9: {time.perf_counter() - t:.1f} s")
     t = phase("10 quantized main path: w8a8 and w8a8_g128")
     for label, kw in (("w8a8", {}), ("w8a8_g128", {"quant_group_size": 128})):
-        pipe, quant[label] = main_path_phase(label, quantize_int8=True, act_quant=True, **kw)
+        pipe, quant[label] = main_path_phase(label, warm=5, quantize_int8=True, act_quant=True,
+                                             **kw)
         del pipe
         torch.cuda.empty_cache()
     say(f"  phase 10: {time.perf_counter() - t:.1f} s")
@@ -1887,14 +1918,19 @@ def main() -> int:
     bf16_params = init_dit_params(get_inverse_renderer_config(512, 512, 1).net,
                                   device="cuda", dtype=torch.bfloat16, seed=0)
     w8a8_params, quant["reference"] = quant_reference_phase(bf16_params)
+    from diffusionrenderer_tpu_torch.models.quant import quantize_dit_params
+
+    g128_params = quantize_dit_params(bf16_params, act_quant=True, group_size=128)
     del bf16_params
     torch.cuda.empty_cache()
     say(f"  phase 11: {time.perf_counter() - t:.1f} s")
     t = phase("12 int8 attention path: dit_forward(attn_backend='pallas_pv_int8')")
     quant["int8_path"] = int8_attention_path_phase(w8a8_params)
     say(f"  phase 12: {time.perf_counter() - t:.1f} s")
-    t = phase("13 profile of one W8A8 DiT forward")
+    t = phase("13 profile of one W8A8 and one W8A8-g128 DiT forward")
     quant["profile"] = profile_phase(w8a8_params, "w8a8")
+    quant["profile_g128"] = profile_phase(g128_params, "w8a8_g128")
+    del g128_params
     quant["prepass_ms_per_forward"] = prepass_per_forward(quant["qmm"])
     say(f"  W8A8 activation pre-passes per DiT forward: {quant['prepass_ms_per_forward']:.2f} "
         "ms of device time (from phase 5's per-call times)")

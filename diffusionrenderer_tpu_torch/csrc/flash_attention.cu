@@ -11,7 +11,7 @@
 //     (kernel 3, flash_partial_kernel);
 //   * _flash_kernel_bounded (:130-182) - p = exp2(s - mb_i) with the
 //     Cauchy-Schwarz row bound mb_i = ||q'_i|| * max_j ||k_j|| computed by the
-//     caller (kernel 7, flash_bounded_kernel<D, false>);
+//     caller (kernel 7, flash_bounded_kernel<D, false>, at D = 256, 512);
 //   * _flash_kernel_bounded_pipe (:262-314, flash_attention(bounded=True,
 //     pipelined=True)) - the same function with the score tile carried one key
 //     tile ahead (kernel 6, flash_bounded_kernel<D, true>).
@@ -21,9 +21,9 @@
 // buffer, and every block of the attention launch evaluates the rule on it
 // (headroom_rule.cuh), so all take the same branch.  Kernels 1 and 2 are one
 // launch (flash_attention_kernel<D>) at D = 256 and 512; at D = 64 and 128
-// they are one launch of flash_attention_wgmma.cu, as is kernel 6.  Kernel 7
-// at every D, and kernels 3 and 6 here, are launches of their own, with no
-// headroom launch and no branch tally.
+// they are one launch of flash_attention_wgmma.cu, where kernels 6 and 7 are
+// too.  Kernel 3 at every D, and kernels 6 and 7 here, are launches of their
+// own, with no headroom launch and no branch tally.
 //
 // What bounds them on an H100: 4*Lq*Lk*H*D matmul operations against (Lq + 2 Lk)
 // *H*D*2 bytes, so at the DiT's D=128 they are tensor-core bound (13 TFLOP at
@@ -42,7 +42,7 @@
 //     summed in shared memory in a fixed order, and each warp accumulates PV
 //     for its own D slice, so the fp32 accumulator fits in registers.
 // wgmma, TMA and warp specialisation for these modes are later work; kernels
-// 1, 2 and 6 at D <= 128 already have them (flash_attention_wgmma.cu).
+// 1, 2, 6 and 7 at D <= 128 already have them (flash_attention_wgmma.cu).
 //
 // Rounding points follow the JAX kernels: q is pre-scaled by the bf16-rounded
 // softmax_scale*log2(e) and rounded back to bf16; P is cast to bf16 before PV;
@@ -582,8 +582,8 @@ extern "C" {
 
 const char* drt_error_string(int code) {
   if (code == kUnsupportedHeadDim)
-    return "unsupported head dim for this launch (headroom, kernels 3 and 7: 64, 128, 256 or 512; "
-           "kernels 1 and 2, and 6: 256 or 512, flash_attention_wgmma.cu takes 64 and 128)";
+    return "unsupported head dim for this launch (headroom, kernel 3: 64, 128, 256 or 512; "
+           "kernels 1, 2, 6 and 7: 256 or 512, flash_attention_wgmma.cu takes 64 and 128)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
@@ -670,26 +670,19 @@ int drt_flash_attention_partial(const void* q, const void* k, const void* v, voi
   }
 }
 
-// mb: fp32 (B, H, Lq), the per-row bound.  pipelined selects kernel 6 (D =
-// 256, 512 here; flash_attention_wgmma.cu at D = 64, 128), else kernel 7.
+// mb: fp32 (B, H, Lq), the per-row bound.  pipelined selects kernel 6, else
+// kernel 7: D = 256, 512 here, flash_attention_wgmma.cu at D = 64, 128.
 int drt_flash_attention_bounded(const void* q, const void* k, const void* v, void* o,
                                 const void* mb, int B, int Lq, int Lk, int H, int D,
                                 float q_scale, int pipelined, void* stream) {
   AttnArgs a = attn_args(q, k, v, o, B, Lq, Lk, H, q_scale);
   a.mb = static_cast<const float*>(mb);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pipelined) {
-    switch (D) {
-      case 256: return launch<256>(flash_bounded_kernel<256, true>, a, st);
-      case 512: return launch<512>(flash_bounded_kernel<512, true>, a, st);
-      default: return kUnsupportedHeadDim;
-    }
-  }
   switch (D) {
-    case 64: return launch<64>(flash_bounded_kernel<64, false>, a, st);
-    case 128: return launch<128>(flash_bounded_kernel<128, false>, a, st);
-    case 256: return launch<256>(flash_bounded_kernel<256, false>, a, st);
-    case 512: return launch<512>(flash_bounded_kernel<512, false>, a, st);
+    case 256: return launch<256>(pipelined ? flash_bounded_kernel<256, true>
+                                           : flash_bounded_kernel<256, false>, a, st);
+    case 512: return launch<512>(pipelined ? flash_bounded_kernel<512, true>
+                                           : flash_bounded_kernel<512, false>, a, st);
     default: return kUnsupportedHeadDim;
   }
 }

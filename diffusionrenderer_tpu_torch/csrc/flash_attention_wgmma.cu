@@ -1,4 +1,4 @@
-// Kernels 1, 2 and 6 for Hopper (sm_90a) at head dims 64 and 128: flash
+// Kernels 1, 2, 6 and 7 for Hopper (sm_90a) at head dims 64 and 128: flash
 // attention on wgmma, TMA and mbarriers.
 //
 // Replaces, of diffusionrenderer_tpu/ops/flash_attention.py:
@@ -11,19 +11,24 @@
 //   * _flash_kernel_bounded_pipe (:262-314) - p = exp2(s - mb_i) with the
 //     caller's row bound mb_i = ||q'_i|| * max_j ||k_j|| and the score tile
 //     carried one key tile ahead (kernel 6, flash_attention(bounded=True,
-//     pipelined=True)).
+//     pipelined=True));
+//   * _flash_kernel_bounded (:130-182) - the same function without the
+//     carried tile (kernel 7, flash_attention_bounded_shift; no JAX code
+//     path calls it).
 // Kernels 1 and 2 are one launch (attention_kernel): every block evaluates
 // the headroom rule (headroom_rule.cuh) on the stats buffer that
 // csrc/flash_attention.cu's headroom_kernel fills, then runs the no-shift or
 // the online body; block (0, 0, 0) tallies the branch.  An unbounded call
-// runs the online body and tallies it.  Kernel 6 is a launch of its own
-// (bounded_pipe_kernel), with no rule and no tally.  With
+// runs the online body and tallies it.  Kernels 6 and 7 are launches of
+// their own (bounded_kernel<D, kBoundedPipe | kBounded>), with no rule and
+// no tally.  With
 // q' = bf16(q * bf16(scale * log2 e)), per key tile of BK keys and row i:
 //   no-shift  p = exp2(s),                  l += sum_j p,  acc += bf16(p) v
 //   online    m_new = max(m, max_j s_ij),   alpha = exp2(m - m_new),
 //             p = exp2(s - m_new),  l = l * alpha + sum_j p,
 //             acc = acc * alpha + bf16(p) v
 //   bounded   p = exp2(s - mb_i),           l += sum_j p,  acc += bf16(p) v
+//             (kernels 6 and 7)
 // and out = acc / l, l clamped at 1e-37 in the no-shift and bounded modes
 // (keys past Lk: s = -1e30): the rounding points of the JAX kernels.  exp2
 // is one SFU instruction (ex2.approx.ftz): weights below 2^-126 flush to
@@ -51,12 +56,16 @@
 //     j-1's PV in flight during tile j's softmax, then a wait for the PV
 //     before the alpha rescale.  No-shift: nothing rescales the accumulator,
 //     so P is double-buffered and tile j-1's PV stays in flight across tile
-//     j's softmax and tile j+1's QK^T.  Bounded (kernel 6): the score tile
-//     is carried, as the TPU kernel's scratch carries it: tile j+1's QK^T is
-//     issued before tile j's exp2, into a second S accumulator, so the
-//     tensor cores compute S_{j+1} while the SFUs take exp2 of S_j;
+//     j's softmax and tile j+1's QK^T; kernel 7 is that body with the row
+//     bound as its shift.  Kernel 6: the score tile is carried, as the TPU
+//     kernel's scratch carries it: tile j+1's QK^T is issued before tile j's
+//     exp2, into a second S accumulator, so the tensor cores compute S_{j+1}
+//     while the SFUs take exp2 of S_j.  Kernels 6 and 7 sum l per thread in
+//     key order and issue PV in k16 order, so the two agree bit for bit at
+//     either tile size;
 //   * 160 / 80 KB of shared memory at D = 128 / 64 with 128-key tiles (96 /
-//     48 KB for kernel 6's 64-key tiles), one block of 8 warps per SM.
+//     48 KB with 64-key tiles: kernel 6, and kernel 7 at D = 64), one block
+//     of 8 warps per SM (two of kernel 7 at D = 64).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -75,12 +84,21 @@ constexpr int kThreads = 128 * kWGS;
 constexpr float kNegInf = -1e30f;  // the JAX kernels' padded-key bias
 constexpr int kUnsupported = 10020;
 
-enum Mode { kNoShift, kOnline, kBoundedPipe };
+enum Mode { kNoShift, kOnline, kBoundedPipe, kBounded };
 
 // Keys per tile, the QK^T wgmma's N: 128, and 64 for kernel 6, which holds
 // two score tiles, the accumulator and P in registers (at 128 keys ptxas
 // spills it: 224 of 255 registers before addresses and temporaries).
-template <Mode M> constexpr int kBlockK = M == kBoundedPipe ? 64 : 128;
+// Kernel 7's tile is chosen by measurement, 128 at D = 128 and 64 at D = 64
+// (scripts/torch_kernel7_tile.py builds this source with
+// DRT_KERNEL7_BLOCK_K = 64 and = 128 and times both at each head dim).
+#ifdef DRT_KERNEL7_BLOCK_K
+template <int D> constexpr int kKernel7BlockK = DRT_KERNEL7_BLOCK_K;
+#else
+template <int D> constexpr int kKernel7BlockK = D == 128 ? 128 : 64;
+#endif
+template <Mode M, int D>
+constexpr int kBlockK = M == kBoundedPipe ? 64 : M == kBounded ? kKernel7BlockK<D> : 128;
 
 template <int D, int BK_> struct Cfg {
   static constexpr int BQ = 64 * kWGS;           // query rows: one wgmma m64 per warpgroup
@@ -100,7 +118,7 @@ struct Args {
   __nv_bfloat16* o;
   const float* stats;  // the headroom stats, read when bounded (kernels 1 and 2)
   int* tally;          // [no-shift launches, online launches]
-  const float* mb;     // (B, H, Lq) row bound (kernel 6)
+  const float* mb;     // (B, H, Lq) row bound (kernels 6 and 7)
   int B, Lq, Lk, H;
   float q_scale;       // softmax_scale * log2(e), rounded to bf16
   float log2_lk_pad;
@@ -144,12 +162,12 @@ __device__ __forceinline__ uint64_t kmajor(uint32_t base, int rows, int ks) {
 }
 
 // One block's 128 query rows against every key, in mode kMode.  Every thread
-// of the block calls it; smem is 1024-byte aligned and Cfg<D, kBlockK<kMode>>
+// of the block calls it; smem is 1024-byte aligned and Cfg<D, kBlockK<kMode, D>>
 // ::smem_bytes long.
 template <int D, Mode kMode>
 __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap* tk,
                                        const CUtensorMap* tv, const Args& p, unsigned char* smem) {
-  using C = Cfg<D, kBlockK<kMode>>;
+  using C = Cfg<D, kBlockK<kMode, D>>;
   constexpr int BK = C::BK, S = C::STAGES;
   constexpr int NS = BK / 2;  // S accumulator registers
   constexpr int NO = D / 2;   // output accumulator registers
@@ -201,7 +219,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
 
   // The bounded mode's fixed per-row shift (padded rows are never stored).
   float mb0 = 0.f, mb1 = 0.f;
-  if constexpr (kMode == kBoundedPipe) {
+  if constexpr (kMode == kBoundedPipe || kMode == kBounded) {
     const long long rows = ((long long)b * p.H + h) * p.Lq;
     if (r0 < p.Lq) mb0 = p.mb[rows + r0];
     if (r1 < p.Lq) mb1 = p.mb[rows + r1];
@@ -369,10 +387,11 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     fence_regs(o);
     fence_regs(pa);
     issue_pv(pa, nk - 1);
-  } else if constexpr (kMode == kNoShift) {
+  } else if constexpr (kMode == kNoShift || kMode == kBounded) {
     // P of tile j in pa0 (j even) or pa1 (j odd): PV_{j-1} reads one buffer
     // while tile j's softmax fills the other, so it is waited for only when
     // tile j+1's QK^T lands (and V_{j-1}'s stage is refilled after that).
+    // The shift is 0 (kernel 1) or the row bound (kernel 7).
     float s[NS];
     uint32_t pa0[KP][4], pa1[KP][4];
     wait_k(0);
@@ -382,7 +401,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     fence_regs(s);
     __syncthreads();  // every warp is done with K_0's stage
     if (tid == 0 && S < nk) load_tile(tk, Ks, kbar, S);
-    exp_pack(s, pa0, 0.f, 0.f, 0);
+    exp_pack(s, pa0, mb0, mb1, 0);
     auto step = [&](int j, auto buf) {
       constexpr int B = decltype(buf)::value;  // j & 1
       auto& cur = pick<B>(pa0, pa1);
@@ -403,7 +422,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
         if (j + S < nk) load_tile(tk, Ks, kbar, j + S);
         if (j >= S) load_tile(tv, Vs, vbar, j);
       }
-      exp_pack(s, cur, 0.f, 0.f, j);
+      exp_pack(s, cur, mb0, mb1, j);
     };
     int j = 1;
     for (; j + 1 < nk; j += 2) {
@@ -505,8 +524,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const Args p) {
-  using C = Cfg<D, kBlockK<kNoShift>>;
-  static_assert(kBlockK<kNoShift> == kBlockK<kOnline>, "both branches share one layout");
+  using C = Cfg<D, kBlockK<kNoShift, D>>;
+  static_assert(kBlockK<kNoShift, D> == kBlockK<kOnline, D>, "both branches share one layout");
   extern __shared__ __align__(1024) unsigned char smem[];
   if (smem_u32(smem) & 1023) __trap();  // the swizzled tiles need 1024-byte alignment
   const int noshift =
@@ -521,14 +540,15 @@ __global__ void __launch_bounds__(kThreads)
     attend<D, kOnline>(&tq, &tk, &tv, p, smem);
 }
 
-// Kernel 6: the bounded softmax on the caller's row bound.
-template <int D>
+// Kernels 6 (kBoundedPipe) and 7 (kBounded): the bounded softmax on the
+// caller's row bound.
+template <int D, Mode kMode>
 __global__ void __launch_bounds__(kThreads)
-    bounded_pipe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv, const Args p) {
+    bounded_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Args p) {
   extern __shared__ __align__(1024) unsigned char smem[];
   if (smem_u32(smem) & 1023) __trap();
-  attend<D, kBoundedPipe>(&tq, &tk, &tv, p, smem);
+  attend<D, kMode>(&tq, &tk, &tv, p, smem);
 }
 
 typedef void (*KernelFn)(CUtensorMap, CUtensorMap, CUtensorMap, Args);
@@ -551,12 +571,14 @@ int launch(KernelFn kernel, const void* q, const void* k, const void* v, const A
 }
 
 // The kernel of `which` and its dynamic shared bytes: 0 = kernels 1 and 2's
-// launch, 1 = kernel 6.
+// launch, 1 = kernel 6, 2 = kernel 7.
 int kernel_of(int which, int D, KernelFn* fn, size_t* smem) {
-  if (which == 0 && D == 64) *fn = attention_kernel<64>, *smem = Cfg<64, kBlockK<kOnline>>::smem_bytes;
-  else if (which == 0 && D == 128) *fn = attention_kernel<128>, *smem = Cfg<128, kBlockK<kOnline>>::smem_bytes;
-  else if (which == 1 && D == 64) *fn = bounded_pipe_kernel<64>, *smem = Cfg<64, kBlockK<kBoundedPipe>>::smem_bytes;
-  else if (which == 1 && D == 128) *fn = bounded_pipe_kernel<128>, *smem = Cfg<128, kBlockK<kBoundedPipe>>::smem_bytes;
+  if (which == 0 && D == 64) *fn = attention_kernel<64>, *smem = Cfg<64, kBlockK<kOnline, 64>>::smem_bytes;
+  else if (which == 0 && D == 128) *fn = attention_kernel<128>, *smem = Cfg<128, kBlockK<kOnline, 128>>::smem_bytes;
+  else if (which == 1 && D == 64) *fn = bounded_kernel<64, kBoundedPipe>, *smem = Cfg<64, kBlockK<kBoundedPipe, 64>>::smem_bytes;
+  else if (which == 1 && D == 128) *fn = bounded_kernel<128, kBoundedPipe>, *smem = Cfg<128, kBlockK<kBoundedPipe, 128>>::smem_bytes;
+  else if (which == 2 && D == 64) *fn = bounded_kernel<64, kBounded>, *smem = Cfg<64, kBlockK<kBounded, 64>>::smem_bytes;
+  else if (which == 2 && D == 128) *fn = bounded_kernel<128, kBounded>, *smem = Cfg<128, kBlockK<kBounded, 128>>::smem_bytes;
   else return kUnsupported;
   return 0;
 }
@@ -587,27 +609,32 @@ int drt_flash_wgmma_attention(const void* q, const void* k, const void* v, void*
          nullptr, B, Lq, Lk, H, q_scale, log2_lk_pad, bounded};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64, kBlockK<kOnline>>(attention_kernel<64>, q, k, v, a, st);
-    case 128: return launch<128, kBlockK<kOnline>>(attention_kernel<128>, q, k, v, a, st);
+    case 64: return launch<64, kBlockK<kOnline, 64>>(attention_kernel<64>, q, k, v, a, st);
+    case 128: return launch<128, kBlockK<kOnline, 128>>(attention_kernel<128>, q, k, v, a, st);
     default: return kUnsupported;
   }
 }
 
-// Kernel 6 on (B, L, H, D) bf16 q, k, v and the fp32 (B, H, Lq) row bound mb.
+// Kernel 6 (pipelined) or 7 on (B, L, H, D) bf16 q, k, v and the fp32
+// (B, H, Lq) row bound mb.
 int drt_flash_wgmma_bounded(const void* q, const void* k, const void* v, void* o, const void* mb,
-                            int B, int Lq, int Lk, int H, int D, float q_scale, void* stream) {
-  if (bad_sizes(B, Lq, Lk, H)) return kUnsupported;
+                            int B, int Lq, int Lk, int H, int D, float q_scale, int pipelined,
+                            void* stream) {
+  KernelFn fn;
+  size_t smem;
+  if (bad_sizes(B, Lq, Lk, H) || kernel_of(pipelined ? 1 : 2, D, &fn, &smem) != 0)
+    return kUnsupported;
   Args a{static_cast<__nv_bfloat16*>(o), nullptr, nullptr, static_cast<const float*>(mb),
          B, Lq, Lk, H, q_scale, 0.f, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch<64, kBlockK<kBoundedPipe>>(bounded_pipe_kernel<64>, q, k, v, a, st);
-    case 128: return launch<128, kBlockK<kBoundedPipe>>(bounded_pipe_kernel<128>, q, k, v, a, st);
-    default: return kUnsupported;
-  }
+  if (pipelined)
+    return D == 64 ? launch<64, kBlockK<kBoundedPipe, 64>>(fn, q, k, v, a, st)
+                   : launch<128, kBlockK<kBoundedPipe, 128>>(fn, q, k, v, a, st);
+  return D == 64 ? launch<64, kBlockK<kBounded, 64>>(fn, q, k, v, a, st)
+                 : launch<128, kBlockK<kBounded, 128>>(fn, q, k, v, a, st);
 }
 
-// which: 0 = kernels 1 and 2's launch, 1 = kernel 6.  out = {registers, local
+// which: 0 = kernels 1 and 2's launch, 1 = kernel 6, 2 = kernel 7.  out = {registers, local
 // (spill) bytes, dynamic shared bytes, resident blocks per SM, threads per block}.
 int drt_flash_wgmma_occupancy(int which, int D, int* out) {
   KernelFn fn;

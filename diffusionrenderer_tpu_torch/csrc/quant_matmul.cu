@@ -1,5 +1,6 @@
-// W8A8 matmul for Hopper (sm_90a): int8 x int8 -> int32 on the tensor cores,
-// per-channel or per-group fp32 weight scales, per-token dequant, bf16/fp32 out.
+// W8A8 matmul for Hopper (sm_90a): int8 x int8 -> int32 on the tensor cores
+// (wgmma), operands by TMA through an mbarrier ring, per-channel or
+// per-group fp32 weight scales, per-token dequant, bf16/fp32 out.
 //
 // Replaces the Pallas kernel `_kernel` of quant_matmul_w8a8 in
 // diffusionrenderer_tpu/ops/quant_matmul.py (:70-130, called at :230).  It
@@ -11,80 +12,96 @@
 // The group fold is one fused multiply-add, as XLA compiles the JAX kernel's
 // `acc += part * s`; every other fp32 step is rounded on its own (__fmul_rn),
 // so the plain version in ops/quant_matmul.py reproduces the kernel bit for
-// bit.  |xq|, |w| <= 127, so an int32 run over K <= 16384
-// cannot overflow.
+// bit.  |xq|, |w| <= 127, so an int32 run over K <= 16384 cannot overflow.
 //
 // What bounds it on an H100: 2*M*N*K int8 operations at 1,979 TOP/s against
 // (M*K + N*K + 2*M*N) bytes at 3.35 TB/s; at the DiT's M = 5,120 rows and
-// K, N in {4096, 16384} it is operation bound (0.087-0.347 ms).  This first
-// version keeps the design simple:
-//   * one 256-thread block per 128 x 128 output tile, a loop over K in
-//     128-byte steps; 8 warps as 2 (rows) x 4 (columns), 64 x 32 per warp;
-//   * A = xq (M, K) row-major and B = w (N, K): the weight is kept in
-//     PyTorch's (out, in) layout, which is exactly the K-contiguous "col"
-//     operand of mma.sync.m16n8k32.row.col.s32.s8.s8.s32, so both operands
-//     come out of shared memory with plain (non-transposed) ldmatrix;
-//   * a 3-stage cp.async ring of 16-byte copies; rows past M or N and the
-//     K tail past a multiple of 16 are zero-filled (no padded copies), and
-//     stores are predicated;
-//   * in grouped mode an fp32 accumulator sits beside the int32 one and the
-//     int32 run is folded into it after each k32 step that ends a group
-//     (group sizes are multiples of 32, so a group holds whole k32 steps).
-// wgmma, TMA and a persistent schedule are left for later work.
+// K, N in {4096, 16384} it is operation bound (0.087-0.347 ms).  The design
+// keeps the tensor cores fed:
+//   * one block per output tile: 2 consumer warpgroups of 64 rows (wgmma
+//     m64) and a producer warpgroup, of which one warp works.  The tile is
+//     128 x 256 per channel (each consumer 64 x 256: 128 int32 accumulator
+//     registers a thread) and 128 x 128 grouped (64 int32 + 64 fp32): ptxas
+//     holds every thread of a 384-thread block to 168 registers;
+//   * both operands arrive by TMA through 2-D tensor maps, in K steps of 128
+//     bytes (one 128-byte swizzle span), into a ring of 4 stages with one
+//     full and one empty mbarrier each.  Rows past M or N and the K tail are
+//     zero-filled by the box.  The weight stays in PyTorch's (out, in)
+//     layout: w (N, K) is the K-major B operand wgmma s8 requires, as xq
+//     (M, K) is the K-major A;
+//   * the consumers run wgmma.m64n{256,128}k32.s32.s8.s8 with both operands
+//     in shared memory, keep one stage's wgmma in flight and release the
+//     stage before it; one producer thread refills a stage once all 8
+//     consumer warps have released it;
+//   * grouped: each group's int32 run starts with scale-d = 0 (no zeroing);
+//     after the group's last k32 step the warpgroup waits for its wgmma and
+//     folds the run into the fp32 accumulator, in group order, with
+//     cvt.rn.f32.s32 (I2FP, as int_matmul_exact's .float() rounds; the
+//     1.5 * 2^23 trick was no faster) and one FFMA an element.  The
+//     producer warp copies each group's scale row into the stage that ends
+//     the group by cp.async, signalled on a third mbarrier of that stage:
+//     neither the fold nor the producer waits on a global load (a producer
+//     that loaded the scales itself held every later stage's TMA back by a
+//     load latency and starved the ring), and stages that end no group
+//     carry no scale traffic.  Where the group is a multiple of 128 only a
+//     stage's end can end one, and the stage's four wgmma issue back to
+//     back before the fold;
+//   * the epilogue stores from registers, predicated, in the fp32 order above;
+//   * grid (M tiles, N tiles), M fastest: the blocks in flight share a few
+//     weight tiles and stream the activations, which stay in L2 at K = 4,096.
+// Group sizes are multiples of 32 dividing K, so a group holds whole k32
+// steps and K is then a multiple of 32; a per-channel K % 32 == 16 ends in a
+// k32 step half of zeros.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int BM = 128, BN = 128, BK = 128;  // BK in bytes (= int8 elements)
-constexpr int STAGES = 3;
-constexpr int PITCH = BK + 16;  // +16 B: ldmatrix rows land in distinct bank groups
-constexpr int kStageBytes = (BM + BN) * PITCH;
-constexpr int kSmemBytes = STAGES * kStageBytes;
-constexpr int WM = 64, WN = 32;          // warp tile
-constexpr int MT = WM / 16, NT = WN / 8;  // m16 and n8 tiles per warp
+using namespace hopper;
 
+constexpr int kConsumers = 2;                    // warpgroups, 64 rows each
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+constexpr int BM = 64 * kConsumers;
+constexpr int BK = 128;                          // bytes (= int8 elements) per stage
+constexpr int KS = BK / 32;                      // k32 steps per stage
+constexpr int STAGES = 4;
 constexpr int kBadShape = 10001;
 
+template <bool kGrouped> struct Tile {
+  static constexpr int BN = kGrouped ? 128 : 256;
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int TMA_BYTES = (BM + BN) * BK;
+  // Grouped: after the operands, one scale row slot (BN fp32) per k32 step,
+  // filled where that step ends a group.
+  static constexpr int STAGE_BYTES = TMA_BYTES + (kGrouped ? KS * BN * 4 : 0);
+  static constexpr int BAR_OFFSET = STAGES * STAGE_BYTES;
+  static constexpr size_t smem_bytes = BAR_OFFSET + 3 * STAGES * sizeof(uint64_t);
+  static_assert(STAGE_BYTES % 1024 == 0, "the swizzled tiles need 1024-byte aligned stages");
+};
+
 struct Args {
-  const int8_t* x;        // (M, K)
-  const int8_t* w;        // (N, K)
   const float* scale;     // (N,) or (G, N)
   const float* dequant;   // (M,)
   void* out;              // (M, N), bf16 or fp32
   int M, N, K, group;     // group = 0: per-channel
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+template <int BN>
+__device__ __forceinline__ void mma(int (&d)[BN / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (BN == 256) wgmma_ss_s8_n256(d, a, b, scale_d);
+  else wgmma_ss_s8_n128(d, a, b, scale_d);
 }
 
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// A K-major tile of 128-byte rows, 128-byte swizzle: the k32 step ks.
+__device__ __forceinline__ uint64_t kdesc(uint32_t base, int ks) {
+  return make_desc(base + ks * 32, 16, 1024, 128);
 }
 
 template <typename T> __device__ __forceinline__ void store_pair(T* p, float a, float b, bool two,
@@ -111,150 +128,208 @@ template <> __device__ __forceinline__ void store_pair<float>(float* p, float a,
   }
 }
 
-// Fragment layouts (mma.m16n8k32, s8): thread (g, t4) = (lane / 4, lane % 4)
-// holds A rows g and g+8, bytes 4*t4..+3 and 16+4*t4..+3 of the k32 step;
-// B column (weight row) g, the same bytes; C rows g and g+8, columns 2*t4, 2*t4+1.
+// Accumulator layout (wgmma m64nN, as mma.sync's m16n8 C fragment over N/8
+// tiles): thread (g, t4) = (lane / 4, lane % 4) of warp w of its warpgroup
+// holds, in d[4j + e], row 16w + g + 8 (e / 2) and column 8j + 2 t4 + (e % 2).
 template <typename OutT, bool kGrouped>
-__global__ void __launch_bounds__(kThreads) w8a8_kernel(Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp / (BN / WN), wn = warp % (BN / WN);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+__global__ void __launch_bounds__(kThreads, 1)
+    w8a8_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                const Args p) {
+  using T = Tile<kGrouped>;
+  constexpr int BN = T::BN, NA = BN / 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (smem_u32(smem) & 1023) __trap();  // the swizzled tiles need 1024-byte alignment
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFFSET);
+  uint64_t* empty = full + STAGES;
+  uint64_t* scaled = empty + STAGES;  // grouped: a stage's scale rows have landed
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int nk = (p.K + BK - 1) / BK;
 
-  auto load_tile = [&](int stage, int kt) {
-    unsigned char* As = smem + stage * kStageBytes;
-    unsigned char* Bs = As + BM * PITCH;
-    const int k0 = kt * BK;
-    constexpr int CPR = BK / 16;  // 16-byte chunks per row
-#pragma unroll
-    for (int c = tid; c < BM * CPR; c += kThreads) {
-      const int r = c / CPR, col = (c % CPR) * 16;
-      const bool kin = k0 + col < p.K;
-      const bool okA = kin && m0 + r < p.M;
-      const bool okB = kin && n0 + r < p.N;
-      const int8_t* srcA = p.x + (okA ? (long long)(m0 + r) * p.K + k0 + col : 0);
-      const int8_t* srcB = p.w + (okB ? (long long)(n0 + r) * p.K + k0 + col : 0);
-      cp_async_16(smem_u32(As + r * PITCH + col), srcA, okA);
-      cp_async_16(smem_u32(Bs + r * PITCH + col), srcB, okB);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * kConsumers);  // one arrival per consumer warp
+      mbar_init(scaled + s, 32);             // one per lane of the producer warp
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Whether the k32 step at byte kg ends a group (steps past K end none), and
+  // whether stage kt holds such a step.
+  auto ends_group = [&](int kg) { return (kg + 32) % p.group == 0 && kg < p.K; };
+  auto scaled_stage = [&](int kt) {
+    bool any = false;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) any |= ends_group(kt * BK + ks * 32);
+    return any;
   };
 
-  int acc[MT][NT][4];
-  float accf[kGrouped ? MT : 1][kGrouped ? NT : 1][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[i][j][e] = 0;
-        if constexpr (kGrouped) accf[i][j][e] = 0.f;
+  if (wg == kConsumers) {  // the producer warpgroup: its first warp
+    if (tid != 128 * kConsumers + lane) return;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % STAGES;
+      unsigned char* st = smem + s * T::STAGE_BYTES;
+      if (lane == 0) {
+        if (kt >= STAGES) mbar_wait(empty + s, (kt / STAGES - 1) & 1);
+        mbar_expect_tx(full + s, T::TMA_BYTES);
+        tma_load_2d(st, &tx, full + s, kt * BK, m0);
+        tma_load_2d(st + T::A_BYTES, &tw, full + s, kt * BK, n0);
       }
-
-  // Columns this thread owns (for the scale reads): n0 + wn*WN + j*8 + 2*t4 + {0, 1}.
-  const int ncol = n0 + wn * WN + 2 * t4;
-
+      // Lane l copies columns n0 + l + 32 i of the scale row of each group
+      // the stage ends, once lane 0 has seen the stage free.
+      if (kGrouped && scaled_stage(kt)) {
+        __syncwarp();
+        float* slot = reinterpret_cast<float*>(st + T::TMA_BYTES);
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_tile(s, s);
-    cp_async_commit();
+        for (int ks = 0; ks < KS; ++ks) {
+          const int kg = kt * BK + ks * 32;
+          if (!ends_group(kg)) continue;
+          const float* row = p.scale + (long long)(kg / p.group) * p.N;
+#pragma unroll
+          for (int i = 0; i < BN / 32; ++i) {
+            const int n = n0 + lane + 32 * i;
+            cp_async_4(slot + ks * BN + lane + 32 * i, row + (n < p.N ? n : 0), n < p.N);
+          }
+        }
+        cp_async_mbar_arrive(scaled + s);  // asynchronous: the next stage's copies go out now
+      }
+    }
+    return;
   }
 
-  // ldmatrix row addresses (lane -> row of its 8x8 matrix).
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 16;
-  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 16;
+  const int g = lane >> 2, t4 = lane & 3;
+  int acc[NA];
+  float accf[kGrouped ? NA : 1];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    acc[i] = 0;
+    if constexpr (kGrouped) accf[i] = 0.f;
+  }
+  fence_regs(acc);  // the zeros are defined before the first wgmma is in flight
 
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (kt + STAGES - 1 < nk) load_tile((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
+  // The run of a group into accf, with its scale row from the stage's slot:
+  // accf = fma(f32(acc), s[n], accf).
+  auto fold = [&](const float* row) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 sv = *reinterpret_cast<const float2*>(row + 8 * j + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        accf[4 * j + e] =
+            __fmaf_rn(__int2float_rn(acc[4 * j + e]), (e & 1) ? sv.y : sv.x, accf[4 * j + e]);
+    }
+  };
+  // Once the committed wgmma through step ks have landed (and, at the
+  // stage's first fold, its scale rows), the fold of the group step ks ended.
+  uint32_t scaled_phase = 0;  // bit s: the parity of stage s's next scale rows
+  auto fold_after = [&](int s, const unsigned char* st, int ks, bool first) {
+    if (first) {
+      mbar_wait(scaled + s, (scaled_phase >> s) & 1);
+      scaled_phase ^= 1u << s;
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+    fold(reinterpret_cast<const float*>(st + T::TMA_BYTES) + ks * BN);
+    wg_fence();
+  };
 
-    const unsigned char* As = smem + (kt % STAGES) * kStageBytes;
-    const unsigned char* Bs = As + BM * PITCH;
+  const uint32_t base = smem_u32(smem);
+  // whole: the group is a multiple of 128, so only a stage's last k32 step
+  // can end one, and the stage's four wgmma issue back to back before the
+  // fold; otherwise a group may end after any k32 step.  Whether a step
+  // ends one is broadcast from lane 0: ptxas then sees a warp-uniform branch
+  // (a divergent one around the fold serializes every wgmma of the kernel).
+  auto mainloop = [&](auto whole) {
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % STAGES;
+      mbar_wait(full + s, (kt / STAGES) & 1);
+      const unsigned char* st = smem + s * T::STAGE_BYTES;
+      const uint32_t a = base + s * T::STAGE_BYTES + wg * 64 * BK;
+      const uint32_t b = base + s * T::STAGE_BYTES + T::A_BYTES;
+      const int k0 = kt * BK;
+      wg_fence();
+      if constexpr (!kGrouped) {
 #pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      const int kglob = kt * BK + ks * 32;
-      if (kglob >= p.K) break;
-      uint32_t af[MT][4], bf[NT][2];
+        for (int ks = 0; ks < KS; ++ks)
+          mma<BN>(acc, kdesc(a, ks), kdesc(b, ks), kt > 0 || ks > 0);
+      } else if constexpr (decltype(whole)::value) {
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(af[i], smem_u32(As + (wm * WM + i * 16 + a_row) * PITCH + ks * 32 + a_col));
+        for (int ks = 0; ks < KS; ++ks)
+          mma<BN>(acc, kdesc(a, ks), kdesc(b, ks), ks > 0 || k0 % p.group != 0);
+        if (__shfl_sync(0xffffffffu, ends_group(k0 + BK - 32), 0)) {
+          wg_commit();
+          fold_after(s, st, KS - 1, true);
+        }
+      } else {
+        bool first = true;
 #pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t r[4];
-        ldmatrix_x4(r, smem_u32(Bs + (wn * WN + j * 8 + b_row) * PITCH + ks * 32 + b_col));
-        bf[j][0] = r[0];
-        bf[j][1] = r[1];
-        bf[j + 1][0] = r[2];
-        bf[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
-
-      if constexpr (kGrouped) {
-        if ((kglob + 32) % p.group == 0) {  // this k32 step ends group kglob / group
-          const float* srow = p.scale + (long long)(kglob / p.group) * p.N;
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const int n = ncol + j * 8;
-            const float s0 = n < p.N ? __ldg(srow + n) : 0.f;
-            const float s1 = n + 1 < p.N ? __ldg(srow + n + 1) : 0.f;
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const float s = (e & 1) ? s1 : s0;
-                accf[i][j][e] = __fmaf_rn(__int2float_rn(acc[i][j][e]), s, accf[i][j][e]);
-                acc[i][j][e] = 0;
-              }
-            }
+        for (int ks = 0; ks < KS; ++ks) {
+          const int kg = k0 + ks * 32;
+          mma<BN>(acc, kdesc(a, ks), kdesc(b, ks), kg % p.group != 0);
+          if (__shfl_sync(0xffffffffu, ends_group(kg), 0)) {
+            wg_commit();
+            fold_after(s, st, ks, first);
+            first = false;
           }
         }
       }
+      wg_commit();
+      wg_wait<1>();  // the previous stage's wgmma have completed; this one's runs on
+      if (kt > 0 && lane == 0) mbar_arrive(empty + (kt - 1) % STAGES);
     }
+  };
+  if constexpr (kGrouped) {
+    if (p.group % BK == 0) mainloop(std::true_type{});
+    else mainloop(std::false_type{});
+  } else {
+    mainloop(std::false_type{});
   }
-  cp_async_wait<0>();
+  wg_wait<0>();
+  fence_regs(acc);
 
   OutT* out = static_cast<OutT*>(p.out);
+  const int r0 = m0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
+  const float dq0 = r0 < p.M ? __ldg(p.dequant + r0) : 0.f;
+  const float dq1 = r1 < p.M ? __ldg(p.dequant + r1) : 0.f;
   const bool paired = (p.N & 1) == 0;
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * t4;
+    if (n >= p.N) continue;
+    float v[4];
+    if constexpr (kGrouped) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * WM + i * 16 + g + h * 8;
-      if (m >= p.M) continue;
-      const float dq = __ldg(p.dequant + m);
+      for (int e = 0; e < 4; ++e) v[e] = __fmul_rn(accf[4 * j + e], e < 2 ? dq0 : dq1);
+    } else {
+      const float s0 = __ldg(p.scale + n);
+      const float s1 = n + 1 < p.N ? __ldg(p.scale + n + 1) : 0.f;
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = ncol + j * 8;
-        if (n >= p.N) continue;
-        float v0, v1;
-        if constexpr (kGrouped) {
-          v0 = __fmul_rn(accf[i][j][2 * h], dq);
-          v1 = __fmul_rn(accf[i][j][2 * h + 1], dq);
-        } else {
-          const float s0 = __ldg(p.scale + n);
-          const float s1 = n + 1 < p.N ? __ldg(p.scale + n + 1) : 0.f;
-          v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h]), s0), dq);
-          v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), s1), dq);
-        }
-        store_pair<OutT>(out + (long long)m * p.N + n, v0, v1, n + 1 < p.N, paired);
-      }
+      for (int e = 0; e < 4; ++e)
+        v[e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + e]), (e & 1) ? s1 : s0),
+                         e < 2 ? dq0 : dq1);
     }
+    if (r0 < p.M) store_pair<OutT>(out + (long long)r0 * p.N + n, v[0], v[1], n + 1 < p.N, paired);
+    if (r1 < p.M) store_pair<OutT>(out + (long long)r1 * p.N + n, v[2], v[3], n + 1 < p.N, paired);
   }
 }
 
-template <typename OutT, bool kGrouped> int launch(const Args& a, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(w8a8_kernel<OutT, kGrouped>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM);
-  w8a8_kernel<OutT, kGrouped><<<grid, kThreads, kSmemBytes, stream>>>(a);
+typedef void (*KernelFn)(CUtensorMap, CUtensorMap, Args);
+
+template <typename OutT, bool kGrouped>
+int launch(const void* x, const void* w, const Args& a, cudaStream_t stream) {
+  using T = Tile<kGrouped>;
+  CUtensorMap mx, mw;
+  int e = encode_rows_u8(&mx, x, a.M, a.K, BK, BM);
+  if (e == 0) e = encode_rows_u8(&mw, w, a.N, a.K, BK, T::BN);
+  if (e != 0) return e;
+  const KernelFn kernel = w8a8_kernel<OutT, kGrouped>;
+  cudaError_t ce = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(T::smem_bytes));
+  if (ce != cudaSuccess) return ce;
+  const dim3 grid((a.M + BM - 1) / BM, (a.N + T::BN - 1) / T::BN);
+  kernel<<<grid, kThreads, T::smem_bytes, stream>>>(mx, mw, a);
   return cudaGetLastError();
 }
 
@@ -265,22 +340,44 @@ extern "C" {
 const char* drt_w8a8_error_string(int code) {
   if (code == kBadShape)
     return "unsupported shape (K % 16 == 0, group % 32 == 0 dividing K, M and N >= 1, "
-           "grid rows <= 65535)";
+           "grid columns ceil(N / 256) <= 65535)";
+  if (code == kEncodeFailed) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // out_fp32 = 0: bf16 output; 1: fp32 output.  group = 0: per-channel scales.
 int drt_w8a8_matmul(const void* x, const void* w, const void* scale, const void* dequant,
                     void* out, int M, int N, int K, int group, int out_fp32, void* stream) {
-  if (M < 1 || N < 1 || K < 16 || K % 16 || (M + BM - 1) / BM > 65535 ||
+  if (M < 1 || N < 1 || K < 16 || K % 16 || (N + 127) / 128 > 65535 ||
       (group && (group % 32 || K % group)))
     return kBadShape;
-  const Args a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-               static_cast<const float*>(scale), static_cast<const float*>(dequant),
-               out, M, N, K, group};
+  const Args a{static_cast<const float*>(scale), static_cast<const float*>(dequant), out, M, N, K,
+               group};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_fp32) return group ? launch<float, true>(a, st) : launch<float, false>(a, st);
-  return group ? launch<__nv_bfloat16, true>(a, st) : launch<__nv_bfloat16, false>(a, st);
+  if (out_fp32) return group ? launch<float, true>(x, w, a, st) : launch<float, false>(x, w, a, st);
+  return group ? launch<__nv_bfloat16, true>(x, w, a, st)
+               : launch<__nv_bfloat16, false>(x, w, a, st);
+}
+
+// The bf16-output kernel, grouped (1) or per channel (0): out = {registers,
+// local (spill) bytes, dynamic shared bytes, resident blocks per SM, threads
+// per block}.
+int drt_w8a8_occupancy(int grouped, int* out) {
+  const void* f = grouped ? reinterpret_cast<const void*>(w8a8_kernel<__nv_bfloat16, true>)
+                          : reinterpret_cast<const void*>(w8a8_kernel<__nv_bfloat16, false>);
+  const size_t smem = grouped ? Tile<true>::smem_bytes : Tile<false>::smem_bytes;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, f);
+  int blocks = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, kThreads, smem);
+  if (e != cudaSuccess) return e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  out[4] = kThreads;
+  return 0;
 }
 
 }  // extern "C"

@@ -3,9 +3,9 @@
 Counterpart of diffusionrenderer_tpu/ops/flash_attention.py
 (`flash_attention(bounded=..., qk_int8=..., pv_int8=...)`).  The kernels are
 in `csrc/flash_attention_wgmma.cu` (kernels 1 and 2 in one launch, and
-kernel 6, on wgmma and TMA at head dims 64 and 128), `csrc/flash_attention.cu`
-(bf16 on mma.sync: kernels 1, 2 and 6 at head dims 256 and 512, kernels 3
-and 7 at every head dim, the headroom kernel) and
+kernels 6 and 7, on wgmma and TMA at head dims 64 and 128),
+`csrc/flash_attention.cu` (bf16 on mma.sync: kernels 1, 2, 6 and 7 at head
+dims 256 and 512, kernel 3 at every head dim, the headroom kernel) and
 `csrc/flash_attention_int8.cu`; this module holds
 
 * `flash_attention` - the entry point, with the JAX package's signature and
@@ -80,7 +80,7 @@ HEAD_DIMS = (64, 128, 256, 512)
 # Keys per tile of the int8 kernel at each head dim it takes
 # (csrc/flash_attention_int8.cu, drt_flash_int8_block_k).
 INT8_BLOCK_K = {64: 64, 128: 64, 256: 64, 512: 32}
-# Head dims at which kernels 1, 2 and 6 are the wgmma kernels
+# Head dims at which kernels 1, 2, 6 and 7 are the wgmma kernels
 # (csrc/flash_attention_wgmma.cu).
 WGMMA_HEAD_DIMS = (64, 128)
 _JAX_DEFAULT_BLOCK_K = 2816  # diffusionrenderer_tpu/ops/flash_attention.py DEFAULT_BLOCK_K
@@ -355,7 +355,7 @@ def _lib_wgmma() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.drt_flash_wgmma_attention.argtypes = [ptr] * 6 + [i32] * 5 + [f32, f32, i32, ptr]
         lib.drt_flash_wgmma_attention.restype = i32
-        lib.drt_flash_wgmma_bounded.argtypes = [ptr] * 5 + [i32] * 5 + [f32, ptr]
+        lib.drt_flash_wgmma_bounded.argtypes = [ptr] * 5 + [i32] * 5 + [f32, i32, ptr]
         lib.drt_flash_wgmma_bounded.restype = i32
         lib.drt_flash_wgmma_error_string.argtypes = [i32]
         lib.drt_flash_wgmma_error_string.restype = ctypes.c_char_p
@@ -489,15 +489,17 @@ def kernel_occupancy(kernel: str, d: int, pv_int8: bool = False) -> Dict[str, in
     """What the CUDA runtime reports for one kernel at head dim d: registers
     a thread, local (spill) bytes, dynamic shared bytes, resident blocks
     per SM and threads per block.  kernel: 'attention' (the launch holding
-    kernels 1 and 2, any head dim), 'bounded_pipe' (kernel 6 at D = 64, 128)
-    or 'int8' (kernel 5, pv_int8 selecting its mode)."""
+    kernels 1 and 2, any head dim), 'bounded_pipe' (kernel 6 at D = 64, 128),
+    'bounded' (kernel 7 at D = 64, 128) or 'int8' (kernel 5, pv_int8
+    selecting its mode)."""
     out = (ctypes.c_int * 5)()
     if kernel == "attention" and d not in WGMMA_HEAD_DIMS:
         lib = _lib()
         err, why = lib.drt_flash_occupancy(d, out), lib.drt_error_string
-    elif kernel in ("attention", "bounded_pipe"):
+    elif kernel in ("attention", "bounded_pipe", "bounded"):
         lib = _lib_wgmma()
-        err = lib.drt_flash_wgmma_occupancy(int(kernel == "bounded_pipe"), d, out)
+        which = ("attention", "bounded_pipe", "bounded").index(kernel)
+        err = lib.drt_flash_wgmma_occupancy(which, d, out)
         why = lib.drt_flash_wgmma_error_string
     elif kernel == "int8":
         lib = _lib_int8()
@@ -528,8 +530,9 @@ def flash_attention_partial_kernel(q, k, v):
 
 
 def flash_attention_bounded_kernel(q, k, v, mb: torch.Tensor, *, pipelined: bool) -> torch.Tensor:
-    """Launch kernel 6 (pipelined: the wgmma kernel at D = 64, 128) or 7 on
-    the row bound mb (fp32 (B, H, Lq), from row_bound)."""
+    """Launch kernel 6 (pipelined) or 7 on the row bound mb (fp32 (B, H,
+    Lq), from row_bound): the wgmma kernels at D = 64, 128, mma.sync at 256,
+    512."""
     _check_kernel_inputs(q, k, v)
     b, lq, h, d = q.shape
     if (mb.device != q.device or mb.dtype != torch.float32 or tuple(mb.shape) != (b, h, lq)
@@ -539,8 +542,9 @@ def flash_attention_bounded_kernel(q, k, v, mb: torch.Tensor, *, pipelined: bool
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), mb.data_ptr(),
             b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype))
     with torch.cuda.device(q.device):
-        if pipelined and d in WGMMA_HEAD_DIMS:
-            _raise_on_wgmma(_lib_wgmma().drt_flash_wgmma_bounded(*args, _stream(q.device)),
+        if d in WGMMA_HEAD_DIMS:
+            _raise_on_wgmma(_lib_wgmma().drt_flash_wgmma_bounded(*args, int(pipelined),
+                                                                 _stream(q.device)),
                             "flash_attention_bounded")
         else:
             _raise_on(_lib().drt_flash_attention_bounded(*args, int(pipelined), _stream(q.device)),

@@ -121,6 +121,8 @@ def _lib() -> ctypes.CDLL:
         lib.drt_w8a8_matmul.restype = i32
         lib.drt_w8a8_error_string.argtypes = [i32]
         lib.drt_w8a8_error_string.restype = ctypes.c_char_p
+        lib.drt_w8a8_occupancy.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.drt_w8a8_occupancy.restype = i32
         _lib_handle = lib
     return _lib_handle
 
@@ -166,6 +168,19 @@ def quant_matmul_w8a8_kernel(xq: torch.Tensor, dequant: torch.Tensor, wq: torch.
         raise RuntimeError(f"quant_matmul_w8a8 failed to launch: {msg} (code {err})")
     LAUNCHES["quant_matmul_w8a8"] += 1
     return out
+
+
+def kernel_occupancy(grouped: bool) -> Dict[str, int]:
+    """What the CUDA runtime reports for the bf16-output kernel, per channel
+    or grouped: registers a thread, local (spill) bytes, dynamic shared
+    bytes, resident blocks per SM and threads per block."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().drt_w8a8_occupancy(int(grouped), out)
+    if err != 0:
+        msg = _lib().drt_w8a8_error_string(err).decode()
+        raise RuntimeError(f"occupancy of quant_matmul_w8a8: {msg} (code {err})")
+    return dict(zip(("registers", "spill_bytes", "dynamic_smem_bytes", "blocks_per_sm",
+                     "threads_per_block"), out))
 
 
 def quant_matmul_w8a8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

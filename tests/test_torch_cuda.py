@@ -13,10 +13,11 @@ a few elements: max |err| within 2e-2 of max |plain| (no floor) and a
 relative L2 error within 1e-2; the int8 attention kernel is held to its
 plain version at the kernel's own key tile; the partial-stats kernel's m and
 l and the bounded kernels' outputs to the same limits.  Kernel 6 is held
-bitwise to kernel 7 at D = 256 and 512, where both are the one mma.sync
-body with the same operations in the same order per tile; at D = 64 and 128
-kernel 6 is the wgmma body, held to kernel 7 and to its plain version at
-the limits above.  A bounded bf16 call is one headroom launch and one
+bitwise to kernel 7 at every head dim: at D = 64 and 128 both are the
+wgmma body, which sums l per thread in key order and issues PV in k16
+order whatever the key tile (kernel 7 takes 128 keys a tile at D = 128,
+kernel 6 64), and at 256 and 512 both are the one mma.sync body, with the
+same operations in the same order per tile.  A bounded bf16 call is one headroom launch and one
 attention launch (kernels 1 and 2 in one grid) at every head dim, and every
 public route takes a strided view.  The W8A8 matmul kernel is
 bitwise equal to its plain version per channel (exact int32 core, the same
@@ -147,14 +148,20 @@ def test_bounded_call_takes_each_branch_through_its_kernel(cuda, d):
 
 def test_kernel_occupancy(cuda):
     """No spills, and at least 8 warps per SM resident, for the wgmma kernels:
-    the launch of kernels 1 and 2 and kernel 6 at D = 64 and 128, and kernel 5."""
-    for kernel, d, pv8 in (("attention", 64, False), ("attention", 128, False),
-                           ("bounded_pipe", 64, False), ("bounded_pipe", 128, False),
-                           ("int8", 64, False), ("int8", 128, False), ("int8", 128, True),
-                           ("int8", 256, False), ("int8", 256, True)):
-        occ = tfa.kernel_occupancy(kernel, d, pv8)
+    the launch of kernels 1 and 2 and kernels 6 and 7 at D = 64 and 128,
+    kernel 5, and kernel 4 per channel and grouped."""
+    occs = {(kernel, d, pv8): tfa.kernel_occupancy(kernel, d, pv8)
+            for kernel, d, pv8 in (("attention", 64, False), ("attention", 128, False),
+                                   ("bounded_pipe", 64, False), ("bounded_pipe", 128, False),
+                                   ("bounded", 64, False), ("bounded", 128, False),
+                                   ("int8", 64, False), ("int8", 128, False),
+                                   ("int8", 128, True), ("int8", 256, False),
+                                   ("int8", 256, True))}
+    for grouped in (False, True):
+        occs[("w8a8", grouped)] = tqm.kernel_occupancy(grouped)
+    for key, occ in occs.items():
         warps = occ["blocks_per_sm"] * occ["threads_per_block"] // 32
-        assert occ["spill_bytes"] == 0 and warps >= 8, (kernel, d, pv8, occ)
+        assert occ["spill_bytes"] == 0 and warps >= 8, (key, occ)
 
 
 def test_headroom_stats_match_plain(cuda):
@@ -228,24 +235,30 @@ def test_dit_forward_kernel_vs_plain_attention(cuda):
     assert_close(got, want)
 
 
+# The DiT's block matmuls (M = 5,120) per channel and g128, and the new
+# design's edges: a k32 step that straddles K (K = 48), partial tiles (M = 77,
+# N = 100, M = 1000), one warpgroup's rows (M = 64), group 32 (a fold after
+# every k32 step, and k32 steps past K at K = 96), 256 and 512 (a group
+# spanning two and four stages).
 QMM_CASES = [(5120, 4096, 4096, None), (5120, 4096, 4096, 128), (5120, 4096, 16384, None),
              (5120, 4096, 16384, 128), (5120, 16384, 4096, None), (5120, 16384, 4096, 128),
              (1000, 4096, 4096, None), (5120, 4096, 4096, 32), (5120, 4096, 4096, 512),
-             (77, 48, 100, None)]
+             (77, 48, 100, None), (64, 4096, 4096, None), (64, 4096, 4096, 128),
+             (77, 512, 100, 256), (1000, 4096, 4096, 256), (77, 96, 100, 32)]
 
 
-@pytest.mark.parametrize("m,k,n,group", QMM_CASES)
-def test_w8a8_kernel_matches_plain(cuda, m, k, n, group):
-    g = torch.Generator(cuda).manual_seed(m + k + n)
-    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
-    leaf = quantize_tensor((torch.randn(n, k, generator=g, device=cuda) * 0.02).bfloat16(),
+def w8a8_operands(device, m, k, n, group):
+    g = torch.Generator(device).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=device).bfloat16()
+    leaf = quantize_tensor((torch.randn(n, k, generator=g, device=device) * 0.02).bfloat16(),
                            act_quant=True, group_size=group)
     xq, dq = tqm.quantize_activation_fp32(x)
-    tqm.reset_counts()
-    got = tqm.quant_matmul_w8a8_kernel(xq, dq, leaf["q"], leaf["sa"], torch.bfloat16)
-    torch.cuda.synchronize()
-    assert tqm.LAUNCHES["quant_matmul_w8a8"] == 1
-    want = tqm.quant_matmul_w8a8_plain(xq, dq, leaf["q"], leaf["sa"], torch.bfloat16)
+    return xq, dq, leaf["q"], leaf["sa"]
+
+
+def assert_w8a8_close(got, want, group):
+    """Per channel bitwise; grouped within one bf16 ulp of max |plain| and a
+    relative L2 error of 1e-3."""
     if group is None:
         assert torch.equal(got, want)
     else:
@@ -253,6 +266,28 @@ def test_w8a8_kernel_matches_plain(cuda, m, k, n, group):
         assert (got.float() - want.float()).abs().max().item() <= 2.0 ** (
             math.floor(math.log2(wmax)) - 7)
         assert ((got.float() - want.float()).norm() / want.float().norm()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("m,k,n,group", QMM_CASES)
+def test_w8a8_kernel_matches_plain(cuda, m, k, n, group):
+    xq, dq, wq, sa = w8a8_operands(cuda, m, k, n, group)
+    tqm.reset_counts()
+    got = tqm.quant_matmul_w8a8_kernel(xq, dq, wq, sa, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tqm.LAUNCHES["quant_matmul_w8a8"] == 1
+    assert_w8a8_close(got, tqm.quant_matmul_w8a8_plain(xq, dq, wq, sa, torch.bfloat16), group)
+
+
+@pytest.mark.parametrize("m,k,n,group", [(77, 48, 100, None), (1000, 4096, 4096, None),
+                                         (77, 512, 100, 256), (1000, 4096, 4096, 128)])
+def test_w8a8_kernel_fp32_output(cuda, m, k, n, group):
+    """The fp32-output kernels: bitwise per channel (the same fp32 epilogue,
+    no bf16 rounding), within the grouped limits otherwise."""
+    xq, dq, wq, sa = w8a8_operands(cuda, m, k, n, group)
+    got = tqm.quant_matmul_w8a8_kernel(xq, dq, wq, sa, torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert_w8a8_close(got, tqm.quant_matmul_w8a8_plain(xq, dq, wq, sa, torch.float32), group)
 
 
 def test_w8a8_kernel_refuses_illegal_shapes(cuda):
@@ -367,11 +402,9 @@ def test_bounded_kernels_match_plain(cuda, b, lq, lk, h, d, aligned):
                                     "flash_attention_bounded": 1}
     assert sum(tfa.LAUNCHES.values()) == 0
     assert tfa.branch_counts(cuda) == {"noshift": 0, "online": 0}
-    if d in tfa.WGMMA_HEAD_DIMS:  # kernel 6 on wgmma, kernel 7 on mma.sync
-        assert_close(pipe, tfa.flash_attention_bounded_plain(q, k, v))
-        assert_close(pipe, shift)
-    else:  # one mma.sync body, the same operations in the same order per tile
-        assert torch.equal(pipe, shift)
+    # One body at each head dim (wgmma at 64 and 128, mma.sync at 256 and
+    # 512), the same operations in the same order per tile.
+    assert torch.equal(pipe, shift)
     assert_close(shift, tfa.flash_attention_bounded_plain(q, k, v))
     if aligned:  # the shift keeps the bounded softmax exact where exp2(s) overflows
         assert_close(shift, tfa.flash_attention_plain(q, k, v, bounded=False))
@@ -388,7 +421,11 @@ def test_wgmma_kernel6_matches_plain_and_kernel7(cuda, b, lq, lk, h, d, aligned)
     torch.cuda.synchronize()
     assert tfa.VARIANT_LAUNCHES["flash_attention_bounded_pipe"] == 1
     assert_close(got, tfa.flash_attention_bounded_plain(q, k, v, mb))
-    assert_close(got, tfa.flash_attention_bounded_kernel(q, k, v, mb, pipelined=False))
+    shift = tfa.flash_attention_bounded_kernel(q, k, v, mb, pipelined=False)
+    torch.cuda.synchronize()
+    assert tfa.VARIANT_LAUNCHES["flash_attention_bounded"] == 1
+    assert_close(shift, tfa.flash_attention_bounded_plain(q, k, v, mb))
+    assert torch.equal(got, shift)
 
 
 def band_qkv(device):
@@ -421,12 +458,13 @@ def noshift_band_qkv(device):
 
 def test_underflow_band_kernels_1_and_6(cuda):
     """Weights below 2^-126 flush to zero in the kernels (ex2.approx.ftz) as
-    in the plain versions: kernel 6 on the q x 14 case, kernel 1 on rows
-    whose every weight is below 2^-126."""
+    in the plain versions: kernels 6 and 7 on the q x 14 case, kernel 1 on
+    rows whose every weight is below 2^-126."""
     q, k, v = band_qkv(cuda)
     want = tfa.flash_attention_bounded_plain(q, k, v)
     assert (want.float().abs().amax(-1) == 0).float().mean() > 0.5
     assert_close(tfa.flash_attention(q, k, v, bounded=True, pipelined=True), want)
+    assert_close(tfa.flash_attention_bounded_shift(q, k, v), want)
     q, k, v = noshift_band_qkv(cuda)
     tfa.reset_counts()
     got = tfa.flash_attention(q, k, v, bounded=True)

@@ -41,6 +41,9 @@ def both(x, q, s):
     (513, 1024, 512, None),   # ragged M
     (512, 2048, 512, 128),    # groups smaller than JAX's k tile (folds_per_tile)
     (512, 2048, 512, 1024),   # groups larger than JAX's k tile (fold_every)
+    (77, 48, 100, None),      # the CUDA kernel's edges: a k32 step across K, partial tiles
+    (64, 512, 256, 256),      # one warpgroup's rows; a group spanning two k steps of 128
+    (64, 512, 256, 128),
 ])
 def test_plain_matches_jax_kernel(m, k, n, group):
     q, s = weights(k, n, group, seed=m + k + (group or 0))
