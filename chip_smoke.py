@@ -13,24 +13,27 @@ Phases (any failure raises and exits non-zero):
                HDR codec (csrc/*.cc, host compiler, zlib); print ptxas's
                registers and spills, and the registers, spills, dynamic shared
                memory and resident blocks per SM of the launch holding kernels
-               1 and 2 (D = 64, 128, 512), kernels 6 and 7 (D = 64, 128),
-               kernel 5 (D = 128, 256) and kernel 4 (per channel, grouped)
-               from the CUDA runtime.  Fails on a spill or a serialized wgmma
-               in the wgmma kernels, and if one of them keeps fewer than 8
-               warps per SM resident.
+               1 and 2 (D = 64, 128, 256, 512), kernels 3, 6 and 7 (D = 64,
+               128), kernel 5 (D = 128, 256) and kernel 4 (per channel,
+               grouped) from the CUDA runtime.  Fails on a spill or a
+               serialized wgmma in the wgmma kernels, and if one of them keeps
+               fewer than 8 warps per SM resident.
   3. kernels - the bf16 attention kernels vs their plain PyTorch version,
                each bounded call one headroom and one attention launch: both
                branches (kernel 1 no-shift, kernel 2 online) at D = 128 and 64
                at the DiT's (5, 1024, 32, 128) with RMS-normed q/k, the
                forward render's (1, 1024|2048, 32, 128), ragged lengths with
                Lk != Lq and fewer keys than one tile; the VAE's D=512 at its
-               encode and decode shapes; one no-shift case in fp32's underflow
-               band; then kernel 2 alone (bounded=False) at the DiT and forward
+               encode and decode shapes and ragged D = 512 and 256 lengths in
+               both branches (the wide-head body); one no-shift case in fp32's
+               underflow band; then kernel 2 alone (bounded=False) at the DiT and forward
                shapes, ragged lengths at D = 128 and 64 and fewer keys than
                one tile.
-  4. flagship attention (1, 28160, 32, 128): kernel time beside
+  4. flagship attention (1, 28160, 32, 128) and the flagship's VAE
+               attention (8, 14080, 1, 512): kernel time beside
                F.scaled_dot_product_attention (a yardstick the port never
-               calls); output checked against the plain version on 2 heads.
+               calls); output checked against the plain version on 2 heads
+               (the VAE shape: on its first batch row).
   5. W8A8 matmul kernel vs its plain version at the DiT's three block
                matmul shapes, per channel and g128, plus ragged M, g32 and
                g512, and the wgmma body's edges (a k32 step across K, partial
@@ -65,14 +68,17 @@ Phases (any failure raises and exits non-zero):
                forward and 9-frame shapes, D = 64, ragged lengths, fewer keys
                than one tile, the VAE's D=512 and fp32's underflow band;
                kernel 6 bitwise against kernel 7 at every head dim (one
-               wgmma body at D = 64, 128, one mma.sync body at 512).
+               wgmma body at D = 64, 128, one mma.sync body at 512); kernel
+               3's output bitwise against the unbounded call at D = 64, 128
+               (kernel 2's online body).
   15. ring merge on one card - the flagship shape's keys in 4 shards,
                kernel 3 on each, merged by the ring's _merge and normalized,
                against kernel 2's exact attention over all keys.
   16. sharded main path - a one-rank NCCL group started here, then
                load_pipeline() + pipe.shard(make_mesh(1, data=1, seq=1,
                tensor=1), sp_attn='ring') + inverse_render(): every DiT
-               attention call launches kernel 3 (28 x 15 per call); one DiT
+               attention call launches kernel 3 (28 x 15 per call); 5 warm
+               calls (median and quartiles); one DiT
                forward on this path vs the unsharded kernel path, and one
                with sp_attn='flash_sp' (kernel 2 on the all-gathered KV)
                bitwise against the unsharded 'pallas_onlinemax' forward.
@@ -81,8 +87,9 @@ Phases (any failure raises and exits non-zero):
                (kernel 6, 28 launches) and one with
                flash_attention_bounded_shift (kernel 7): bitwise equal to each
                other, and within bf16 noise of the kernel path's forward.
-  18. timings of kernels 3, 6 and 7 at the DiT and flagship shapes beside
-               kernel 2 and their yardsticks.
+  18. timings of kernels 3, 6 and 7 at the DiT and flagship shapes, and
+               on their mma.sync body at the VAE's encode shape and at D =
+               256, beside kernel 2 and their yardsticks.
   19. kernel 5 at head dims 512 and 256 (the VAE's (1|5, 4096, 1, 512), a
                ragged D=512 length, (2, 1024, 8, 256)), qk8 and qk8+pv8: vs its
                plain version at the kernel's key tile and vs attention_xla;
@@ -138,6 +145,9 @@ DIT_SHAPE = (5, 1024, 1024, 32, 128)     # 5 passes x one 512x512 frame
 VAE_ENC_SHAPE = (1, 4096, 4096, 1, 512)  # mid-block spatial attention, encode
 VAE_DEC_SHAPE = (5, 4096, 4096, 1, 512)  # and decode of the 5 pass rows
 FLAGSHIP_SHAPE = (1, 28160, 28160, 32, 128)
+# The flagship's VAE mid-block attention: 57 frames at 704x1280 are 8 latent
+# frames of 88 x 160 tokens, one head of 512.
+FLAGSHIP_VAE_SHAPE = (8, 14080, 14080, 1, 512)
 # The forward render's DiT attention: one 512x512 frame, and a 9-frame clip
 # (2 latent frames); its VAE attention is VAE_ENC_SHAPE (8 encodes, 1 decode).
 FWD_DIT_SHAPE = (1, 1024, 1024, 32, 128)
@@ -353,10 +363,12 @@ def build_phase():
             spills = [m.group(0) for m in re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
                       if m.group(1) != "0" or m.group(2) != "0"]
             check(not spills, f"{name}.cu: ptxas reports spills: {spills}")
-    # The launch holding kernels 1 and 2 (wgmma at D = 64, 128; mma.sync at
-    # 512), kernels 6 and 7 on wgmma, kernel 5, kernel 4.
-    occ = {f"kernel12_attention_d{d}": fa.kernel_occupancy("attention", d) for d in (64, 128, 512)}
+    # The launch holding kernels 1 and 2 (the wide-head body at D = 256,
+    # 512), kernels 3, 6 and 7, kernel 5, kernel 4: all on wgmma.
+    occ = {f"kernel12_attention_d{d}": fa.kernel_occupancy("attention", d)
+           for d in (64, 128, 256, 512)}
     for d in (64, 128):
+        occ[f"kernel3_partial_d{d}"] = fa.kernel_occupancy("partial", d)
         occ[f"kernel6_bounded_pipe_d{d}"] = fa.kernel_occupancy("bounded_pipe", d)
         occ[f"kernel7_bounded_d{d}"] = fa.kernel_occupancy("bounded", d)
     occ["kernel4_w8a8_per_channel"] = qm.kernel_occupancy(False)
@@ -370,10 +382,9 @@ def build_phase():
             f"memory, {o['blocks_per_sm']} blocks of {o['threads_per_block']} threads per SM")
         check(o["spill_bytes"] == 0, f"{name} spills: {o}")
         check(o["blocks_per_sm"] >= 1, f"{name} does not fit on an SM: {o}")
-        if not name.endswith("_d512"):  # the wgmma kernels
-            warps = o["blocks_per_sm"] * o["threads_per_block"] // 32
-            check(warps >= MIN_WGMMA_WARPS, f"{name}: {warps} warps per SM resident, "
-                                            f"fewer than {MIN_WGMMA_WARPS}: {o}")
+        warps = o["blocks_per_sm"] * o["threads_per_block"] // 32
+        check(warps >= MIN_WGMMA_WARPS, f"{name}: {warps} warps per SM resident, "
+                                        f"fewer than {MIN_WGMMA_WARPS}: {o}")
     return occ
 
 
@@ -482,6 +493,12 @@ def kernels_phase():
                     expect_branch="noshift", seed=6),
         kernel_case("online_d512", (1, 1000, 1200, 1, 512), rms_normed=False, q_scale=100.0,
                     expect_branch="online", seed=5),
+        kernel_case("ragged_d512", (1, 1000, 1200, 1, 512), rms_normed=False, q_scale=1.0,
+                    expect_branch="noshift", seed=8),
+        kernel_case("ragged_d256", (2, 1000, 777, 2, 256), rms_normed=False, q_scale=1.0,
+                    expect_branch="noshift", seed=9),
+        kernel_case("online_d256", (2, 1000, 777, 2, 256), rms_normed=False, q_scale=100.0,
+                    expect_branch="online", seed=10),
         kernel_case("noshift_underflow_band", (1, 128, 256, 2, 64), expect_branch="noshift",
                     inputs=noshift_band_qkv()),
     ]
@@ -526,6 +543,48 @@ def flagship_phase():
     say("flagship_attention " + json.dumps(rec))
     check(ok, "flagship: kernel disagrees with plain on 2 heads")
     del q, k, v, out, q2, k2, v2, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flagship_vae_phase():
+    """Kernels 1 and 2 at the flagship's VAE attention (8, 14080, 1, 512),
+    the wide-head body: the bounded call (no-shift on these inputs) and the
+    online branch timed beside SDPA, each checked against the plain version
+    on the first batch row (rows of one batch entry depend on it alone)."""
+    import torch
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    shape = FLAGSHIP_VAE_SHAPE
+    q, k, v = make_qkv(shape, rms_normed=False, seed=17)
+    stats = fa.flash_headroom(q, k, v)
+    fa.reset_counts()
+    out = fa.flash_attention(q, k, v, bounded=True)
+    online_out = fa.flash_attention(q, k, v, bounded=False)
+    torch.cuda.synchronize()
+    branches = fa.branch_counts("cuda")
+    q1, k1, v1 = (x[:1].contiguous() for x in (q, k, v))
+    rec = {"shape": list(shape), "branches": branches,
+           "ms": time_ms(lambda: fa.flash_attention_kernel(q, k, v, stats), reps=5, warmup=1),
+           "online_ms": time_ms(lambda: fa.flash_attention_kernel(q, k, v, None), reps=5,
+                                warmup=1),
+           "library_ms": sdpa_ms(q, k, v, reps=5),
+           "plain_ms_1_row": time_ms(lambda: fa.flash_attention_plain(q1, k1, v1), reps=1,
+                                     warmup=0)}
+    oks = []
+    for key, got, bounded in (("noshift", out, True), ("online", online_out, False)):
+        err, rel, ok = compare(got[:1], fa.flash_attention_plain(q1, k1, v1, bounded=bounded))
+        rec[f"{key}_max_abs_err_1_row"], rec[f"{key}_rel_l2_1_row"] = err, rel
+        oks.append(ok)
+    rec["bound_ms"], rec["bound_by"] = attention_bound(shape, noshift=True)
+    rec["online_bound_ms"] = attention_bound(shape, noshift=False)[0]
+    rec["vs_library"] = rec["ms"] / rec["library_ms"]
+    rec["online_vs_library"] = rec["online_ms"] / rec["library_ms"]
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    say("flagship_vae_attention " + json.dumps(rec))
+    check(all(oks), "flagship VAE attention: kernel disagrees with plain on the first row")
+    check(branches == {"noshift": 1, "online": 1}, f"flagship VAE attention: branches {branches}")
+    del q, k, v, stats, out, online_out, q1, k1, v1
     torch.cuda.empty_cache()
     return rec
 
@@ -938,8 +997,8 @@ def profile_phase(params, label: str = "bf16", net=None, inputs=None):
                   else ev.self_cuda_time_total)
         dev_ms = dev_us / 1e3
         name, low = ev.key, ev.key.lower()
-        if any(w in name for w in ("attention_kernel", "bounded_pipe_kernel", "flash_int8",
-                                   "flash_partial", "flash_bounded")):
+        if any(w in name for w in ("attention_kernel", "bounded_kernel", "partial_kernel",
+                                   "flash_int8", "flash_partial", "flash_bounded")):
             cls = "flash_attention"
         elif "headroom_kernel" in name:
             cls = "headroom"
@@ -1119,12 +1178,12 @@ def attention_timings(shape, normed: bool, reps: int, two_heads: bool = False):
     return rec, head
 
 
-def kernel_records(main_rec, errs, quant, var, occ):
+def kernel_records(main_rec, errs, quant, var, occ, flagship_vae):
     """Per-kernel numbers at the main path's shapes.  `errs` = phase 3's
     (kernels 1 and 2 / bounded call, headroom stats, kernel 2 alone) errors,
     `quant` carries the int8 kernels' numbers from phases 5, 6, 10 and 12,
     `var` kernels 3, 6 and 7's from phases 14 to 18, `occ` phase 2's
-    occupancy."""
+    occupancy, `flagship_vae` phase 4's wide-head numbers."""
     attn_shapes, head_shapes = [], []
     for shape, normed, reps in ((DIT_SHAPE, True, 20), (VAE_ENC_SHAPE, False, 5),
                                 (VAE_DEC_SHAPE, False, 5), (FWD_DIT_SHAPE, True, 20),
@@ -1134,7 +1193,7 @@ def kernel_records(main_rec, errs, quant, var, occ):
         head_shapes.append(head)
     flagship, _ = attention_timings(FLAGSHIP_SHAPE, True, 3, two_heads=True)
     src = "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu"
-    src_wide = "diffusionrenderer_tpu_torch/csrc/flash_attention.cu"
+    src_wide = src + " attention_kernel_wide<D> (attend_wide"
     main = main_rec["launches"]
     dit = attn_shapes[0]
     by_shape = attn_shapes + [flagship]
@@ -1146,15 +1205,17 @@ def kernel_records(main_rec, errs, quant, var, occ):
                     "library_queued_ms", "kernel6_queued_vs_library_queued", "row_bound_ms")
     records = [
         {"name": "flash_attention", "route": "cuda", "source": src,
-         "source_d256_d512": src_wide + " attend<D, kNoShift>",
+         "source_d256_d512": src_wide + "<D, kNoShift>)",
          "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:185 (_flash_kernel_noshift)",
          "launches": main["flash_attention"], "launches_by_branch": main_rec["branches"],
          "launches_note": "one launch holds kernels 1 and 2; its blocks take the branch "
                           "the headroom rule picks",
          "max_abs_err": errs[0], **dit, "occupancy_d128": occ["kernel12_attention_d128"],
-         "main_path_shapes": attn_shapes, "flagship": flagship},
+         "occupancy_d512": occ["kernel12_attention_d512"],
+         "main_path_shapes": attn_shapes, "flagship": flagship,
+         "flagship_vae": {k_: v_ for k_, v_ in flagship_vae.items() if not k_.startswith("online")}},
         {"name": "flash_attention_online", "route": "cuda", "source": src,
-         "source_d256_d512": src_wide + " attend<D, kOnline>",
+         "source_d256_d512": src_wide + "<D, kOnline>)",
          "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:58 (_flash_kernel, "
                      "_flash_kernel_nobias :116; pallas_call :478, :675)",
          "launches": main["flash_attention"], "launches_by_branch": main_rec["branches"],
@@ -1165,9 +1226,14 @@ def kernel_records(main_rec, errs, quant, var, occ):
          "bound_ms": dit["online_bound_ms"], "bound_by": "operations",
          "library_ms": dit["library_ms"], "library": "F.scaled_dot_product_attention bf16",
          "occupancy_d128": occ["kernel12_attention_d128"],
+         "occupancy_d512": occ["kernel12_attention_d512"],
          "main_path_shapes": [{"shape": r["shape"], **{k_: r[k_] for k_ in online_keys if k_ in r}}
-                              for r in by_shape]},
-        {"name": "flash_attention_headroom", "route": "cuda", "source": src_wide,
+                              for r in by_shape],
+         "flagship_vae": {k_: flagship_vae[k_] for k_ in ("shape", "online_ms", "library_ms",
+                                                          "online_bound_ms", "online_vs_library",
+                                                          "online_max_abs_err_1_row")}},
+        {"name": "flash_attention_headroom", "route": "cuda",
+         "source": "diffusionrenderer_tpu_torch/csrc/flash_attention.cu headroom_kernel",
          "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:488 (the headroom rule "
                      "_bounded_cond_call evaluates before its lax.cond; bound at :559)",
          "launches": main["flash_attention_headroom"], "max_abs_err": errs[1],
@@ -1253,7 +1319,9 @@ def variant_case(name, shape, *, rms_normed=True, seed=0, inputs=None):
     """Kernels 3, 6 and 7 vs their plain versions on one input (make_qkv's,
     or `inputs`); kernel 6 bitwise against kernel 7 (one wgmma body at D =
     64 and 128, one mma.sync body at 256 and 512: the same operations in the
-    same order per tile).  Returns the case's record."""
+    same order per tile); at D = 64 and 128 kernel 3's output bitwise
+    against the unbounded call (kernel 2's online body).  Returns the case's
+    record."""
     import torch
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
 
@@ -1284,6 +1352,10 @@ def variant_case(name, shape, *, rms_normed=True, seed=0, inputs=None):
                        "flash_attention_bounded_pipe": 1, "flash_attention_bounded": 1},
           f"{name}: launch counters wrong")
     check(branches == {"noshift": 0, "online": 0}, f"{name}: the branch tally moved")
+    if shape[-1] in fa.WGMMA_HEAD_DIMS:
+        rec["partial_bitwise_online"] = bool(torch.equal(out, fa.flash_attention(q, k, v)))
+        check(rec["partial_bitwise_online"],
+              f"{name}: kernel 3's output is not bitwise the unbounded call's")
     return rec
 
 
@@ -1337,9 +1409,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def sharded_main_path_phase(unsharded_warm_s: float):
+def sharded_main_path_phase(unsharded_warm_s: float, warm: int):
     """A one-rank NCCL group, then the sharded inverse render with ring
-    attention at full width; returns (pipe, mesh, record)."""
+    attention at full width, first call and `warm` warm calls; returns
+    (pipe, mesh, record)."""
     import numpy as np
     import torch
     from diffusionrenderer_tpu_torch.api import INVERSE_PASSES, inverse_render, load_pipeline
@@ -1378,14 +1451,9 @@ def sharded_main_path_phase(unsharded_warm_s: float):
     # The VAE's mid-block attention (encode and decode) keeps kernel 1.
     check(launches["flash_attention"] == 2 and launches["flash_attention_headroom"] == 2,
           f"VAE attention launches {launches}")
-    t0 = time.perf_counter()
-    inverse_render(pipe, image)
-    torch.cuda.synchronize()
-    rec["warm"] = {"wall_s": time.perf_counter() - t0,
-                   **{f"{k}_s": v for k, v in pipe.timings.items()},
-                   "denoise_step_s": pipe.timings["denoise"] / pipe.num_steps}
+    rec["warm"] = warm_calls(lambda: inverse_render(pipe, image), warm, pipe)
     rec["unsharded_warm_wall_s"] = unsharded_warm_s
-    rec["warm_vs_unsharded"] = rec["warm"]["wall_s"] / unsharded_warm_s
+    rec["warm_vs_unsharded"] = rec["warm"]["median_s"] / unsharded_warm_s
     say("main_path_sharded " + json.dumps(rec))
     return pipe, mesh, rec
 
@@ -1476,17 +1544,23 @@ def bounded_forward_phase(params):
     return rec
 
 
+# Kernels 3, 6 and 7 at the wide heads, on the mma.sync body no path
+# launches: the VAE's encode shape and D = 256 at 8 heads.
+WIDE_VARIANT_SHAPES = (("vae_d512", VAE_ENC_SHAPE, 5), ("d256", (2, 1024, 1024, 8, 256), 10))
+
+
 def variant_timings_phase():
-    """Kernels 3, 6 and 7 (and kernel 2) at the DiT and flagship shapes,
-    their plain versions (2 heads at the flagship shape), the row bound's
-    pre-pass, and the yardsticks: aten._scaled_dot_product_flash_attention
-    (output with its log-sum-exp) for kernel 3, F.scaled_dot_product_attention
-    for kernels 6 and 7."""
+    """Kernels 3, 6 and 7 (and kernel 2) at the DiT and flagship shapes and
+    at WIDE_VARIANT_SHAPES, their plain versions (2 heads at the flagship
+    shape), the row bound's pre-pass, and the yardsticks:
+    aten._scaled_dot_product_flash_attention (output with its log-sum-exp)
+    for kernel 3, F.scaled_dot_product_attention for kernels 6 and 7."""
     import torch
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
 
     recs = {}
-    for label, shape, reps in (("dit", DIT_SHAPE, 20), ("flagship", FLAGSHIP_SHAPE, 5)):
+    for label, shape, reps in (("dit", DIT_SHAPE, 20), ("flagship", FLAGSHIP_SHAPE, 5),
+                               *WIDE_VARIANT_SHAPES):
         q, k, v = make_qkv(shape, rms_normed=True, seed=55)
         mb = fa.row_bound(q, k)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1498,12 +1572,14 @@ def variant_timings_phase():
                    q, k, v, mb, pipelined=False), reps),
                "kernel2_ms": time_ms(lambda: fa.flash_attention_kernel(q, k, v, None), reps),
                "row_bound_ms": time_ms(lambda: fa.row_bound(q, k), reps),
+               # PyTorch's flash kernel (output and log-sum-exp) takes D <= 256.
                "library_lse_ms": time_ms(
-                   lambda: torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt), reps),
+                   lambda: torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt), reps)
+               if shape[-1] <= 256 else None,
                "library_ms": sdpa_ms(q, k, v, reps)}
         rec["kernel3_bound_ms"], rec["kernel3_bound_by"] = partial_bound(shape)
         rec["bounded_bound_ms"], rec["bounded_bound_by"] = bounded_bound(shape)
-        if label == "dit":
+        if label != "flagship":
             rec["kernel3_plain_ms"] = time_ms(lambda: fa.flash_attention_partial_plain(q, k, v),
                                               2, warmup=1)
             rec["bounded_plain_ms"] = time_ms(lambda: fa.flash_attention_bounded_plain(q, k, v),
@@ -1518,6 +1594,9 @@ def variant_timings_phase():
         b, lq, lk, h, d = shape
         for key in ("kernel3", "kernel6", "kernel7", "kernel2"):
             rec[f"{key}_tflops"] = 4 * b * lq * lk * h * d / rec[f"{key}_ms"] / 1e9
+        rec["kernel3_vs_library"] = (rec["kernel3_ms"] / rec["library_lse_ms"]
+                                     if rec["library_lse_ms"] else None)
+        rec["kernel3_share_of_bound"] = rec["kernel3_bound_ms"] / rec["kernel3_ms"]
         say(f"  variant timings {label} " + json.dumps(rec))
         recs[label] = rec
         del q, k, v, mb, qt, kt, vt
@@ -1530,19 +1609,34 @@ def variant_records(var, occ, kernel6_shapes):
     flagship's beside them; kernel 6 also at phase 23's shapes."""
     src = "diffusionrenderer_tpu_torch/csrc/flash_attention.cu"
     dit, flag = var["timings"]["dit"], var["timings"]["flagship"]
+    sharded = var["sharded"]
     common = {"route": "cuda", "source": src, "max_abs_err": var["max_err"],
               "shape": list(DIT_SHAPE)}
+
+    def wide(key, bound):  # the mma.sync body at D = 256, 512
+        return {label: {k: var["timings"][label][k] for k in
+                        ("shape", f"{key}_ms", bound, "library_ms", "library_lse_ms")}
+                for label, _, _ in WIDE_VARIANT_SHAPES}
     return [
         {"name": "flash_attention_partial", **common,
+         "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu partial_kernel<D> "
+                   "(attend<D, kPartial>, kernel 2's online body)",
+         "source_d256_d512": src + " attend<D, kPartial>",
          "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:121 (_flash_kernel_partial) "
                      "and :384 (_flash_kernel_partial_bias), via flash_attention_partial :766",
-         "launches": var["sharded"]["launches"]["flash_attention_partial"],
+         "launches": sharded["launches"]["flash_attention_partial"],
+         "occupancy_d128": occ["kernel3_partial_d128"],
+         "vs_library": dit["kernel3_vs_library"],
+         "sharded_render_warm": {k: sharded["warm"][k] for k in ("median_s", "q1_s", "q3_s",
+                                                                  "median_step_ms")},
          "ms": dit["kernel3_ms"], "plain_ms": dit["kernel3_plain_ms"],
          "bound_ms": dit["kernel3_bound_ms"], "bound_by": dit["kernel3_bound_by"],
          "library_ms": dit["library_lse_ms"],
          "library": "torch.ops.aten._scaled_dot_product_flash_attention (output + logsumexp)",
          "flagship": {k: flag[k] for k in ("kernel3_ms", "kernel3_bound_ms", "library_lse_ms",
-                                           "kernel3_plain_ms_2_heads", "kernel2_ms")}},
+                                           "kernel3_plain_ms_2_heads", "kernel2_ms",
+                                           "kernel3_vs_library")},
+         "mma_sync_d256_d512": wide("kernel3", "kernel3_bound_ms")},
         {"name": "flash_attention_bounded_pipe", **common,
          "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu "
                    "bounded_kernel<D, kBoundedPipe>",
@@ -1556,6 +1650,7 @@ def variant_records(var, occ, kernel6_shapes):
          "row_bound_prepass_ms": dit["row_bound_ms"],
          "flagship": {k: flag[k] for k in ("kernel6_ms", "bounded_bound_ms", "library_ms",
                                            "bounded_plain_ms_2_heads", "row_bound_ms")},
+         "mma_sync_d256_d512": wide("kernel6", "bounded_bound_ms"),
          "occupancy_d128": occ["kernel6_bounded_pipe_d128"], "main_path_shapes": kernel6_shapes},
         {"name": "flash_attention_bounded", **common,
          "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu "
@@ -1570,6 +1665,7 @@ def variant_records(var, occ, kernel6_shapes):
          "row_bound_prepass_ms": dit["row_bound_ms"],
          "flagship": {k: flag[k] for k in ("kernel7_ms", "bounded_bound_ms", "library_ms",
                                            "bounded_plain_ms_2_heads", "row_bound_ms")},
+         "mma_sync_d256_d512": wide("kernel7", "bounded_bound_ms"),
          "occupancy_d128": occ["kernel7_bounded_d128"]},
     ]
 
@@ -1885,6 +1981,7 @@ def main() -> int:
     say(f"  phase 3: {time.perf_counter() - t:.1f} s")
     t = phase("4 flagship attention")
     flagship_phase()
+    flagship_vae = flagship_vae_phase()
     say(f"  phase 4: {time.perf_counter() - t:.1f} s")
     quant = {}
     t = phase("5 W8A8 matmul kernel vs plain")
@@ -1945,7 +2042,7 @@ def main() -> int:
     var["ring_merge"] = ring_merge_phase()
     say(f"  phase 15: {time.perf_counter() - t:.1f} s")
     t = phase("16 sharded main path: one-rank NCCL mesh, sp_attn='ring'")
-    pipe, mesh, var["sharded"] = sharded_main_path_phase(main_rec["warm"]["median_s"])
+    pipe, mesh, var["sharded"] = sharded_main_path_phase(main_rec["warm"]["median_s"], warm=5)
     var["sharded_forward"] = sharded_forward_phase(pipe, mesh)
     say(f"  phase 16: {time.perf_counter() - t:.1f} s")
     t = phase("17 bounded-shift DiT forwards: kernels 6 and 7")
@@ -1974,7 +2071,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     say(f"  phase 22: {time.perf_counter() - t:.1f} s")
     t = phase("23 kernel timings at the main path's shapes")
-    records = kernel_records(main_rec, errs, quant, var, occ)
+    records = kernel_records(main_rec, errs, quant, var, occ, flagship_vae)
     for rec, name in zip(records[:3], ("flash_attention", "flash_attention",
                                        "flash_attention_headroom")):
         rec["launches_forward_render"] = fwd["first"]["launches"][name]

@@ -1,34 +1,30 @@
-// Flash attention for Hopper (sm_90a), bf16 in, fp32 softmax state.
+// Flash attention for Hopper (sm_90a) on mma.sync, bf16 in, fp32 softmax
+// state: the headroom kernel at every head dim, and kernels 3, 6 and 7 at
+// the wide heads D = 256 and 512, which no model path launches.
 //
-// Replaces the bf16 Pallas kernels of diffusionrenderer_tpu/ops/flash_attention.py:
-//   * _flash_kernel_noshift (:185-259) - p = exp2(s) with no max shift, taken
-//     when the headroom rule of _bounded_cond_call (:488-491) holds (kernel 1);
-//   * _flash_kernel / _flash_kernel_nobias (:58-118) - the online-softmax
-//     fallback, and the whole of backend='pallas_onlinemax' (kernel 2);
+// Replaces, of diffusionrenderer_tpu/ops/flash_attention.py:
+//   * the headroom rule's statistics (_bounded_cond_call :488-491, left to
+//     XLA in JAX): per (b, h) max ||q'_i|| and max ||k_j||, and max |v|,
+//     which every block of the launch holding kernels 1 and 2
+//     (flash_attention_wgmma.cu) turns into the branch (headroom_rule.cuh);
 //   * _flash_kernel_partial / _flash_kernel_partial_bias (:121, :384, through
-//     flash_attention_partial :766) - kernel 2 plus the per-row running max m
-//     (log2 domain) and normalizer l, the inner block of ring attention
-//     (kernel 3, flash_partial_kernel);
+//     flash_attention_partial :766) - the online softmax plus the per-row
+//     running max m (log2 domain) and normalizer l, the inner block of ring
+//     attention (kernel 3, flash_partial_kernel, here at D = 256 and 512);
 //   * _flash_kernel_bounded (:130-182) - p = exp2(s - mb_i) with the
 //     Cauchy-Schwarz row bound mb_i = ||q'_i|| * max_j ||k_j|| computed by the
-//     caller (kernel 7, flash_bounded_kernel<D, false>, at D = 256, 512);
+//     caller (kernel 7, flash_bounded_kernel<D, false>);
 //   * _flash_kernel_bounded_pipe (:262-314, flash_attention(bounded=True,
 //     pipelined=True)) - the same function with the score tile carried one key
 //     tile ahead (kernel 6, flash_bounded_kernel<D, true>).
-// All are one templated body (attend<D, Mode>).  The no-shift / online branch
-// is chosen on the device, without a host sync: headroom_kernel reduces the
-// bound (max ||q_i|| * max ||k_j|| per (b, h)) and max |v| into a small stats
-// buffer, and every block of the attention launch evaluates the rule on it
-// (headroom_rule.cuh), so all take the same branch.  Kernels 1 and 2 are one
-// launch (flash_attention_kernel<D>) at D = 256 and 512; at D = 64 and 128
-// they are one launch of flash_attention_wgmma.cu, where kernels 6 and 7 are
-// too.  Kernel 3 at every D, and kernels 6 and 7 here, are launches of their
-// own, with no headroom launch and no branch tally.
+// Kernels 3, 6 and 7 are modes of one templated body (attend<D, Mode>),
+// launches of their own with no headroom launch and no branch tally.  At
+// D = 64 and 128 they, and kernels 1 and 2 at every head dim, are the wgmma
+// kernels of flash_attention_wgmma.cu.
 //
 // What bounds them on an H100: 4*Lq*Lk*H*D matmul operations against (Lq + 2 Lk)
-// *H*D*2 bytes, so at the DiT's D=128 they are tensor-core bound (13 TFLOP at
-// the 28,160-token flagship shape, ~13 ms at 989 TFLOP/s), with Lq*Lk*H exp2 on
-// the SFUs next (~6-7 ms).  This version keeps the design simple:
+// *H*D*2 bytes, with Lq*Lk*H exp2 on the SFUs next, and the K and V tiles
+// every block streams from L2.  This version keeps the design simple:
 //   * one 128-thread block per (query tile, head, batch), a loop over key
 //     tiles in place of the TPU's sequential grid axis;
 //   * K and V tiles double-buffered in shared memory with cp.async, keys past
@@ -37,20 +33,18 @@
 //     registers and becomes the A operand of PV directly;
 //   * q, k, v and the output contiguous (B, L, H, D), addressed from B, L, H
 //     and D (the public wrappers copy any other view first);
-//   * wide heads (D = 256, 512: the VAE's mid-block attention) split D across
-//     warps: each warp forms the partial S of its D slice, the slices are
-//     summed in shared memory in a fixed order, and each warp accumulates PV
-//     for its own D slice, so the fp32 accumulator fits in registers.
-// wgmma, TMA and warp specialisation for these modes are later work; kernels
-// 1, 2, 6 and 7 at D <= 128 already have them (flash_attention_wgmma.cu).
+//   * the wide heads split D across warps: each warp forms the partial S of
+//     its D slice, the slices are summed in shared memory in a fixed order,
+//     and each warp accumulates PV for its own D slice, so the fp32
+//     accumulator fits in registers.
 //
 // Rounding points follow the JAX kernels: q is pre-scaled by the bf16-rounded
 // softmax_scale*log2(e) and rounded back to bf16; P is cast to bf16 before PV;
-// l and acc are fp32; max(l, 1e-37) in the no-shift and bounded modes only.
-// Those modes take exp2 as ex2.approx.ftz, so weights below 2^-126 flush to
-// zero as on XLA's CPU backend (rows whose bound overshoots their true max by
-// more than ~126 log2 units come out as zeros, as in JAX); the online modes
-// keep exp2f, where a flushed weight could not show.
+// l and acc are fp32; max(l, 1e-37) in the bounded modes only.  Those modes
+// take exp2 as ex2.approx.ftz, so weights below 2^-126 flush to zero as on
+// XLA's CPU backend (rows whose bound overshoots their true max by more than
+// ~126 log2 units come out as zeros, as in JAX); kernel 3 keeps exp2f, where
+// a flushed weight could not show.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,8 +64,6 @@ constexpr int kUnsupportedHeadDim = 10000;
 
 template <int D> struct Tile;
 // WD: warps splitting the head dim; BK: keys per shared-memory tile.
-template <> struct Tile<64> { static constexpr int WD = 1, BK = 64; };
-template <> struct Tile<128> { static constexpr int WD = 1, BK = 64; };
 template <> struct Tile<256> { static constexpr int WD = 2, BK = 64; };
 template <> struct Tile<512> { static constexpr int WD = 4, BK = 32; };
 
@@ -94,12 +86,8 @@ struct AttnArgs {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
-  const float* stats;   // [qmax(B*H), kmax(B*H), vmax], read when bounded
-  int* tally;           // [no-shift blocks(0,0,0), online blocks(0,0,0)]
   int B, Lq, Lk, H;
   float q_scale;        // softmax_scale * log2(e), rounded to bf16
-  float log2_lk_pad;
-  int bounded;
   const float* mb;      // (B, H, Lq) row bound of the bounded modes
   float* m_out;         // (B, H, Lq) running max and normalizer of kPartial
   float* l_out;
@@ -220,15 +208,14 @@ __global__ void __launch_bounds__(kThreads) headroom_kernel(HeadArgs p) {
 // (lane / 4, lane % 4) holds rows g and g+8, columns t4*2 and t4*2+1 of each
 // 8-wide n-tile.  The modes differ only in the softmax of a score tile, the
 // finalize and, for kBoundedPipe, the order of the loop:
-//   kNoShift      p = exp2(s); l clamped at 1e-37                 (kernel 1)
-//   kOnline       running max m, alpha rescale of l and acc       (kernel 2)
-//   kPartial      kOnline, plus m and l stored per query row      (kernel 3)
+//   kPartial      running max m, alpha rescale of l and acc, and m
+//                 and l stored per query row                      (kernel 3)
 //   kBounded      p = exp2(s - mb_i) with the row bound mb_i read
 //                 from memory: no max, no rescale; l clamped      (kernel 7)
 //   kBoundedPipe  kBounded with tile j+1's QK^T issued before tile
 //                 j's exp2 and PV                                  (kernel 6)
 // ---------------------------------------------------------------------------
-enum Mode { kNoShift, kOnline, kPartial, kBounded, kBoundedPipe };
+enum Mode { kPartial, kBounded, kBoundedPipe };
 
 template <int D, Mode kMode>
 __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
@@ -237,7 +224,6 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
   constexpr int KS = C::DS / 16;  // k-steps of QK^T over the warp's D slice
   constexpr int NO = C::DS / 8;   // output n-tiles
   constexpr int KP = C::BK / 16;  // k-steps of PV
-  constexpr bool kRunningMax = kMode == kOnline || kMode == kPartial;
   constexpr bool kRowBound = kMode == kBounded || kMode == kBoundedPipe;
   static_assert(NO % 2 == 0, "ldmatrix.x4 loads two output n-tiles");
 
@@ -346,15 +332,7 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
   // P in place of S for one tile, and the row sums (and, online, the
   // running max and the rescale of l and acc).
   auto softmax = [&](float (&s)[NS][4]) {
-    if constexpr (kMode == kNoShift) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = hopper::ex2(s[n][e]);
-        l0 += s[n][0] + s[n][1];
-        l1 += s[n][2] + s[n][3];
-      }
-    } else if constexpr (kRowBound) {
+    if constexpr (kRowBound) {
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
         s[n][0] = hopper::ex2(s[n][0] - mb0);
@@ -500,7 +478,7 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
       }
     }
   }
-  if constexpr (!kRunningMax) {
+  if constexpr (kRowBound) {
     l0 = fmaxf(l0, 1e-37f);
     l1 = fmaxf(l1, 1e-37f);
   }
@@ -515,23 +493,6 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
       *reinterpret_cast<uint32_t*>(ob + (long long)r1 * row_stride + d) =
           pack_bf16(o[t][2] / l1, o[t][3] / l1);
   }
-}
-
-// Kernels 1 and 2 in one launch (D = 256, 512): bounded, every block
-// evaluates the headroom rule and runs the branch it picks; unbounded, the
-// online body.  Block (0, 0, 0) tallies the branch.
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(AttnArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float rule_scratch[kThreads / 32 + 1];
-  const int noshift =
-      p.bounded ? rule::block_noshift<kThreads>(p.stats, p.B * p.H, p.log2_lk_pad, rule_scratch) : 0;
-  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
-    atomicAdd(p.tally + (noshift ? 0 : 1), 1);
-  if (noshift)
-    attend<D, kNoShift>(p, smem);
-  else
-    attend<D, kOnline>(p, smem);
 }
 
 // Kernel 3: the online softmax over this call's keys, with the per-row m and l
@@ -582,8 +543,8 @@ extern "C" {
 
 const char* drt_error_string(int code) {
   if (code == kUnsupportedHeadDim)
-    return "unsupported head dim for this launch (headroom, kernel 3: 64, 128, 256 or 512; "
-           "kernels 1, 2, 6 and 7: 256 or 512, flash_attention_wgmma.cu takes 64 and 128)";
+    return "unsupported head dim for this launch (headroom: 64, 128, 256 or 512; kernels 3, 6 "
+           "and 7: 256 or 512, flash_attention_wgmma.cu takes 64 and 128)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
@@ -610,50 +571,7 @@ int drt_flash_headroom(const void* q, const void* k, const void* v, void* stats,
   return cudaGetLastError();
 }
 
-// Kernels 1 and 2 in one launch at D = 256, 512.  bounded: stats is
-// flash_headroom's buffer and the rule picks the branch; otherwise the online
-// branch runs.  tally: int32[2], one added to the branch taken.
-int drt_flash_attention(const void* q, const void* k, const void* v, void* o, const void* stats,
-                        void* tally, int B, int Lq, int Lk, int H, int D, float q_scale,
-                        float log2_lk_pad, int bounded, void* stream) {
-  AttnArgs a = attn_args(q, k, v, o, B, Lq, Lk, H, q_scale);
-  a.stats = static_cast<const float*>(stats);
-  a.tally = static_cast<int*>(tally);
-  a.log2_lk_pad = log2_lk_pad;
-  a.bounded = bounded;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 256: return launch<256>(flash_attention_kernel<256>, a, st);
-    case 512: return launch<512>(flash_attention_kernel<512>, a, st);
-    default: return kUnsupportedHeadDim;
-  }
-}
-
-// Kernels 1 and 2's launch at head dim D = 256, 512: out = {registers, local
-// (spill) bytes, dynamic shared bytes, resident blocks per SM, threads per block}.
-int drt_flash_occupancy(int D, int* out) {
-  const void* fn;
-  size_t smem;
-  switch (D) {
-    case 256: fn = (const void*)flash_attention_kernel<256>; smem = Cfg<256>::smem_bytes; break;
-    case 512: fn = (const void*)flash_attention_kernel<512>; smem = Cfg<512>::smem_bytes; break;
-    default: return kUnsupportedHeadDim;
-  }
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
-  int blocks = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
-  if (e != cudaSuccess) return e;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)smem;
-  out[3] = blocks;
-  out[4] = kThreads;
-  return 0;
-}
-
-// m, l: fp32 (B, H, Lq), written for every query row.
+// Kernel 3 at D = 256, 512; m, l: fp32 (B, H, Lq), written for every query row.
 int drt_flash_attention_partial(const void* q, const void* k, const void* v, void* o, void* m,
                                 void* l, int B, int Lq, int Lk, int H, int D, float q_scale,
                                 void* stream) {
@@ -662,8 +580,6 @@ int drt_flash_attention_partial(const void* q, const void* k, const void* v, voi
   a.l_out = static_cast<float*>(l);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(flash_partial_kernel<64>, a, st);
-    case 128: return launch<128>(flash_partial_kernel<128>, a, st);
     case 256: return launch<256>(flash_partial_kernel<256>, a, st);
     case 512: return launch<512>(flash_partial_kernel<512>, a, st);
     default: return kUnsupportedHeadDim;

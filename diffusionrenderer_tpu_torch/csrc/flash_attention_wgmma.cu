@@ -1,5 +1,6 @@
-// Kernels 1, 2, 6 and 7 for Hopper (sm_90a) at head dims 64 and 128: flash
-// attention on wgmma, TMA and mbarriers.
+// Kernels 1, 2, 3, 6 and 7 for Hopper (sm_90a): flash attention on wgmma,
+// TMA and mbarriers, at head dims 64 and 128, and kernels 1 and 2 also at
+// the wide heads 256 and 512 (the VAE's mid-block attention).
 //
 // Replaces, of diffusionrenderer_tpu/ops/flash_attention.py:
 //   * _flash_kernel_noshift (:185-259) - p = exp2(s) with no max shift, taken
@@ -8,6 +9,10 @@
 //     :675) - the online softmax (kernel 2): flash_attention(bounded=False),
 //     attention(backend='pallas_onlinemax'), flash_sp, and the online branch
 //     of every bounded call;
+//   * _flash_kernel_partial / _flash_kernel_partial_bias (:121, :384, through
+//     flash_attention_partial :766) - kernel 2 plus the per-row running max m
+//     (log2 domain) and the unclamped normalizer l, the inner block of ring
+//     attention (kernel 3, partial_kernel);
 //   * _flash_kernel_bounded_pipe (:262-314) - p = exp2(s - mb_i) with the
 //     caller's row bound mb_i = ||q'_i|| * max_j ||k_j|| and the score tile
 //     carried one key tile ahead (kernel 6, flash_attention(bounded=True,
@@ -15,29 +20,33 @@
 //   * _flash_kernel_bounded (:130-182) - the same function without the
 //     carried tile (kernel 7, flash_attention_bounded_shift; no JAX code
 //     path calls it).
-// Kernels 1 and 2 are one launch (attention_kernel): every block evaluates
-// the headroom rule (headroom_rule.cuh) on the stats buffer that
-// csrc/flash_attention.cu's headroom_kernel fills, then runs the no-shift or
-// the online body; block (0, 0, 0) tallies the branch.  An unbounded call
-// runs the online body and tallies it.  Kernels 6 and 7 are launches of
-// their own (bounded_kernel<D, kBoundedPipe | kBounded>), with no rule and
-// no tally.  With
+// Kernels 1 and 2 are one launch (attention_kernel, attention_kernel_wide):
+// every block evaluates the headroom rule (headroom_rule.cuh) on the stats
+// buffer that csrc/flash_attention.cu's headroom_kernel fills, then runs the
+// no-shift or the online body; block (0, 0, 0) tallies the branch.  An
+// unbounded call runs the online body and tallies it.  Kernels 3, 6 and 7
+// are launches of their own (partial_kernel<D>, bounded_kernel<D, kBoundedPipe
+// | kBounded>), with no rule and no tally; kernel 3 is the online body, so
+// its output equals the unbounded call's bit for bit.  With
 // q' = bf16(q * bf16(scale * log2 e)), per key tile of BK keys and row i:
 //   no-shift  p = exp2(s),                  l += sum_j p,  acc += bf16(p) v
 //   online    m_new = max(m, max_j s_ij),   alpha = exp2(m - m_new),
 //             p = exp2(s - m_new),  l = l * alpha + sum_j p,
 //             acc = acc * alpha + bf16(p) v
+//             (kernel 3 also stores m and l per row)
 //   bounded   p = exp2(s - mb_i),           l += sum_j p,  acc += bf16(p) v
 //             (kernels 6 and 7)
 // and out = acc / l, l clamped at 1e-37 in the no-shift and bounded modes
 // (keys past Lk: s = -1e30): the rounding points of the JAX kernels.  exp2
 // is one SFU instruction (ex2.approx.ftz): weights below 2^-126 flush to
-// zero, as on XLA's CPU backend; the plain versions flush them too.
+// zero, as on XLA's CPU backend; the plain versions flush them too.  The
+// wide heads' online branch keeps exp2f, as the mma.sync body it replaces
+// did: in the online softmax a flushed weight could not show.
 //
 // What bounds them on an H100: 4*Lq*Lk*H*D bf16 tensor-core operations (0.087
 // ms at the DiT's (5, 1024, 32, 128)), then Lq*Lk*H exp2 on the SFUs, and
 // the K and V tiles every block streams from L2 (each query block reads all
-// of its head's keys).  The design:
+// of its head's keys).  The design at D = 64, 128:
 //   * two warpgroups (256 threads) per block, 64 query rows each (wgmma m64),
 //     sharing every K and V tile: 128 query rows per block halve the L2
 //     traffic of one warpgroup per block; grid (ceil(Lq / 128), H, B),
@@ -51,10 +60,10 @@
 //     with both operands in shared memory
 //     (K-major); P, converted to bf16 in registers, is the register A operand
 //     of the PV wgmma m64n{D}k16, V read MN-major (the transpose bit);
-//   * the overlap follows what each softmax must wait for.  Online:
-//     FlashAttention-3's intra-warpgroup pipelining, tile j's QK^T and tile
-//     j-1's PV in flight during tile j's softmax, then a wait for the PV
-//     before the alpha rescale.  No-shift: nothing rescales the accumulator,
+//   * the overlap follows what each softmax must wait for.  Online (kernels
+//     2 and 3): FlashAttention-3's intra-warpgroup pipelining, tile j's QK^T
+//     and tile j-1's PV in flight during tile j's softmax, then a wait for the
+//     PV before the alpha rescale.  No-shift: nothing rescales the accumulator,
 //     so P is double-buffered and tile j-1's PV stays in flight across tile
 //     j's softmax and tile j+1's QK^T; kernel 7 is that body with the row
 //     bound as its shift.  Kernel 6: the score tile is carried, as the TPU
@@ -66,6 +75,7 @@
 //   * 160 / 80 KB of shared memory at D = 128 / 64 with 128-key tiles (96 /
 //     48 KB with 64-key tiles: kernel 6, and kernel 7 at D = 64), one block
 //     of 8 warps per SM (two of kernel 7 at D = 64).
+// The wide heads' design is described at attend_wide below.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -84,7 +94,7 @@ constexpr int kThreads = 128 * kWGS;
 constexpr float kNegInf = -1e30f;  // the JAX kernels' padded-key bias
 constexpr int kUnsupported = 10020;
 
-enum Mode { kNoShift, kOnline, kBoundedPipe, kBounded };
+enum Mode { kNoShift, kOnline, kPartial, kBoundedPipe, kBounded };
 
 // Keys per tile, the QK^T wgmma's N: 128, and 64 for kernel 6, which holds
 // two score tiles, the accumulator and P in registers (at 128 keys ptxas
@@ -123,6 +133,8 @@ struct Args {
   float q_scale;       // softmax_scale * log2(e), rounded to bf16
   float log2_lk_pad;
   int bounded;
+  float* m_out;        // (B, H, Lq) running max and normalizer (kernel 3)
+  float* l_out;
 };
 
 template <int N> struct Buf { static constexpr int value = N; };
@@ -134,7 +146,8 @@ template <int I, typename T> __device__ __forceinline__ T& pick(T& a, T& b) {
 
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (N == 64) wgmma_ss_bf16_n64(d, a, b, scale_d);
+  if constexpr (N == 32) wgmma_ss_bf16_n32(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_ss_bf16_n64(d, a, b, scale_d);
   else wgmma_ss_bf16_n128(d, a, b, scale_d);
 }
 
@@ -142,7 +155,8 @@ template <int N>
 __device__ __forceinline__ void mma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                           int scale_d) {
   if constexpr (N == 64) wgmma_rs_bf16_tb_n64(d, a, b, scale_d);
-  else wgmma_rs_bf16_tb_n128(d, a, b, scale_d);
+  else if constexpr (N == 128) wgmma_rs_bf16_tb_n128(d, a, b, scale_d);
+  else wgmma_rs_bf16_tb_n256(d, a, b, scale_d);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -159,6 +173,126 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t x, float qs) {
 // K-major tile of `rows` rows in 128-byte boxes: the k16 step ks.
 __device__ __forceinline__ uint64_t kmajor(uint32_t base, int rows, int ks) {
   return make_desc(base + (ks / 4) * rows * 128 + (ks % 4) * 32, 16, 1024, 128);
+}
+
+// q' = bf16(q * q_scale) in place, by every thread of a block: elementwise,
+// so the swizzle is immaterial.  Then the proxy fence and the barrier before
+// the first wgmma reads it.
+template <int kBytes>
+__device__ __forceinline__ void prescale_q(unsigned char* Qs, float q_scale) {
+  for (int i = threadIdx.x; i < kBytes / 16; i += kThreads) {
+    uint4 x = reinterpret_cast<uint4*>(Qs)[i];
+    x.x = scale_pair(x.x, q_scale);
+    x.y = scale_pair(x.y, q_scale);
+    x.z = scale_pair(x.z, q_scale);
+    x.w = scale_pair(x.w, q_scale);
+    reinterpret_cast<uint4*>(Qs)[i] = x;
+  }
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// P = exp2(x - shift) of a tile's scores as bf16 A fragments of PV, summed
+// into l0 / l1 (the no-shift and bounded modes); x is only read.  This
+// thread's keys 8n + 2 t4 + (e & 1) of the tile are below Lk when
+// 8n + (e & 1) < lim.  Two adjacent n8 tiles of the accumulator are one k16
+// A fragment.
+template <int BK>
+__device__ __forceinline__ void exp_pack(const float (&x)[BK / 2], uint32_t (&pa)[BK / 16][4],
+                                         float sh0, float sh1, int lim, float& l0, float& l1) {
+#pragma unroll
+  for (int kp = 0; kp < BK / 16; ++kp) {
+    float e[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float y = ex2(x[8 * kp + i] - ((i & 2) ? sh1 : sh0));
+      e[i] = (2 * kp + i / 4) * 8 + (i & 1) < lim ? y : 0.f;
+    }
+    l0 += e[0] + e[1];
+    l1 += e[2] + e[3];
+    l0 += e[4] + e[5];
+    l1 += e[6] + e[7];
+    pa[kp][0] = pack_bf16(e[0], e[1]);
+    pa[kp][1] = pack_bf16(e[2], e[3]);
+    pa[kp][2] = pack_bf16(e[4], e[5]);
+    pa[kp][3] = pack_bf16(e[6], e[7]);
+  }
+}
+
+// The online softmax of one tile: s (scores, keys >= Lk masked with -1e30
+// where the tile is ragged, `key0` its first key) -> P in place (fp32), the
+// running max m and l updated, and the rescale of acc in a0 / a1 (applied
+// by the caller once the previous tile's PV has landed).  kExp2f: exp2f in
+// place of the SFU's ex2.approx.ftz.
+template <int BK, bool kExp2f>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2], int key0, int Lk, int t4,
+                                               float& m0, float& m1, float& l0, float& l1,
+                                               float& a0, float& a1) {
+  auto exp2_ = [](float x) { return kExp2f ? exp2f(x) : ex2(x); };
+  if (key0 + BK > Lk) {  // ragged last tile: mask keys >= Lk
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (key0 + n * 8 + 2 * t4 + (e & 1) >= Lk) s[4 * n + e] = kNegInf;
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  a0 = exp2_(m0 - mx0);
+  a1 = exp2_(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  l0 *= a0;
+  l1 *= a1;
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+    s[4 * n] = exp2_(s[4 * n] - m0);
+    s[4 * n + 1] = exp2_(s[4 * n + 1] - m0);
+    s[4 * n + 2] = exp2_(s[4 * n + 2] - m1);
+    s[4 * n + 3] = exp2_(s[4 * n + 3] - m1);
+    l0 += s[4 * n] + s[4 * n + 1];
+    l1 += s[4 * n + 2] + s[4 * n + 3];
+  }
+}
+
+// P to bf16: two adjacent n8 tiles of the accumulator are one k16 A fragment.
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+  for (int kp = 0; kp < BK / 16; ++kp) {
+    pa[kp][0] = pack_bf16(s[8 * kp], s[8 * kp + 1]);
+    pa[kp][1] = pack_bf16(s[8 * kp + 2], s[8 * kp + 3]);
+    pa[kp][2] = pack_bf16(s[8 * kp + 4], s[8 * kp + 5]);
+    pa[kp][3] = pack_bf16(s[8 * kp + 6], s[8 * kp + 7]);
+  }
+}
+
+// acc *= alpha, row by row.
+template <int NO>
+__device__ __forceinline__ void rescale(float (&o)[NO], float a0, float a1) {
+#pragma unroll
+  for (int n = 0; n < NO / 4; ++n) {
+    o[4 * n] *= a0;
+    o[4 * n + 1] *= a0;
+    o[4 * n + 2] *= a1;
+    o[4 * n + 3] *= a1;
+  }
+}
+
+// The quad's sums of l: each row's four threads hold a quarter of its keys.
+__device__ __forceinline__ void quad_sum(float& l0, float& l1) {
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
 }
 
 // One block's 128 query rows against every key, in mode kMode.  Every thread
@@ -207,7 +341,8 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
   };
   // V tiles loaded ahead of the loop: the online body refills V_{j-1}'s
   // stage at the end of iteration j, the others one iteration later.
-  constexpr int kVAhead = kMode == kOnline ? S - 1 : S;
+  constexpr bool kRunningMax = kMode == kOnline || kMode == kPartial;
+  constexpr int kVAhead = kRunningMax ? S - 1 : S;
   if (tid == 0) {
     mbar_expect_tx(qbar, C::Q_BYTES);
 #pragma unroll
@@ -225,25 +360,15 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     if (r1 < p.Lq) mb1 = p.mb[rows + r1];
   }
 
-  // q' = bf16(q * q_scale) in place: elementwise, so the swizzle is immaterial.
   mbar_wait(qbar, 0);
-  for (int i = tid; i < C::Q_BYTES / 16; i += kThreads) {
-    uint4 x = reinterpret_cast<uint4*>(Qs)[i];
-    x.x = scale_pair(x.x, p.q_scale);
-    x.y = scale_pair(x.y, p.q_scale);
-    x.z = scale_pair(x.z, p.q_scale);
-    x.w = scale_pair(x.w, p.q_scale);
-    reinterpret_cast<uint4*>(Qs)[i] = x;
-  }
-  fence_proxy_async();
-  __syncthreads();
+  prescale_q<C::Q_BYTES>(Qs, p.q_scale);
 
   // This warpgroup's 64 rows of each Q box.
   const uint32_t q_addr = smem_u32(Qs) + wg * 64 * 128, k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
   float o[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
-  float l0 = 0.f, l1 = 0.f;
+  float l0 = 0.f, l1 = 0.f, m0 = kNegInf, m1 = kNegInf;
 
   auto wait_k = [&](int t) { mbar_wait(kbar + t % S, (t / S) & 1); };
   auto wait_v = [&](int t) { mbar_wait(vbar + t % S, (t / S) & 1); };
@@ -263,84 +388,17 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
       mma_rs_tb<D>(o, pa[kp], make_desc(vb + kp * 16 * 128, BK * 128, 1024, 128), 1);
     wg_commit();
   };
-  // P = exp2(x - shift) of tile t's scores (keys >= Lk: 0) as bf16 A
-  // fragments of PV, summed into l (the no-shift and bounded modes); x is
-  // only read.  Two adjacent n8 tiles of the accumulator are one k16 A
-  // fragment.
-  auto exp_pack = [&](const float (&x)[NS], uint32_t (&pa)[KP][4], float sh0, float sh1, int t) {
-    // This thread's keys 8n + 2 t4 + (e & 1) of the tile are below Lk when
-    // 8n + (e & 1) < lim.
-    const int lim = (t + 1) * BK > p.Lk ? p.Lk - t * BK - 2 * t4 : BK;
-#pragma unroll
-    for (int kp = 0; kp < KP; ++kp) {
-      float e[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float y = ex2(x[8 * kp + i] - ((i & 2) ? sh1 : sh0));
-        e[i] = (2 * kp + i / 4) * 8 + (i & 1) < lim ? y : 0.f;
-      }
-      l0 += e[0] + e[1];
-      l1 += e[2] + e[3];
-      l0 += e[4] + e[5];
-      l1 += e[6] + e[7];
-      pa[kp][0] = pack_bf16(e[0], e[1]);
-      pa[kp][1] = pack_bf16(e[2], e[3]);
-      pa[kp][2] = pack_bf16(e[4], e[5]);
-      pa[kp][3] = pack_bf16(e[6], e[7]);
-    }
+  // Tile t's keys below Lk of this thread: 8n + (e & 1) < lim (exp_pack).
+  auto lim = [&](int t) { return (t + 1) * BK > p.Lk ? p.Lk - t * BK - 2 * t4 : BK; };
+  auto exp_tile = [&](const float (&x)[NS], uint32_t (&pa)[KP][4], int t) {
+    exp_pack<BK>(x, pa, mb0, mb1, lim(t), l0, l1);
   };
 
-  if constexpr (kMode == kOnline) {
+  if constexpr (kRunningMax) {
     float s[NS];
     uint32_t pa[KP][4];
-    float m0 = kNegInf, m1 = kNegInf, a0, a1;
-    // Tile t's scores in s -> P in place (fp32), the running max and l
-    // updated, and the rescale of acc in a0 / a1 (applied by the caller once
-    // the previous tile's PV has landed).
-    auto softmax = [&](int t) {
-      if ((t + 1) * BK > p.Lk) {  // ragged last tile: mask keys >= Lk
-#pragma unroll
-        for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (t * BK + n * 8 + 2 * t4 + (e & 1) >= p.Lk) s[4 * n + e] = kNegInf;
-      }
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      a0 = ex2(m0 - mx0);
-      a1 = ex2(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      l0 *= a0;
-      l1 *= a1;
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        s[4 * n] = ex2(s[4 * n] - m0);
-        s[4 * n + 1] = ex2(s[4 * n + 1] - m0);
-        s[4 * n + 2] = ex2(s[4 * n + 2] - m1);
-        s[4 * n + 3] = ex2(s[4 * n + 3] - m1);
-        l0 += s[4 * n] + s[4 * n + 1];
-        l1 += s[4 * n + 2] + s[4 * n + 3];
-      }
-    };
-    // P to bf16: two adjacent n8 tiles of the accumulator are one k16 A fragment.
-    auto pack_p = [&]() {
-#pragma unroll
-      for (int kp = 0; kp < KP; ++kp) {
-        pa[kp][0] = pack_bf16(s[8 * kp], s[8 * kp + 1]);
-        pa[kp][1] = pack_bf16(s[8 * kp + 2], s[8 * kp + 3]);
-        pa[kp][2] = pack_bf16(s[8 * kp + 4], s[8 * kp + 5]);
-        pa[kp][3] = pack_bf16(s[8 * kp + 6], s[8 * kp + 7]);
-      }
-    };
+    float a0, a1;
+    auto softmax = [&](int t) { online_softmax<BK, false>(s, t * BK, p.Lk, t4, m0, m1, l0, l1, a0, a1); };
 
     wait_k(0);
     wg_fence();
@@ -348,7 +406,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     wg_wait<0>();
     fence_regs(s);
     softmax(0);
-    pack_p();
+    pack_p<BK>(s, pa);
     __syncthreads();  // every warp is done with K_0's stage
     if (tid == 0) {
       if (S < nk) load_tile(tk, Ks, kbar, S);
@@ -368,14 +426,8 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
       wg_wait<0>();
       fence_regs(o);
       fence_regs(pa);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        o[4 * n] *= a0;
-        o[4 * n + 1] *= a0;
-        o[4 * n + 2] *= a1;
-        o[4 * n + 3] *= a1;
-      }
-      pack_p();
+      rescale(o, a0, a1);
+      pack_p<BK>(s, pa);
       __syncthreads();  // K_j's and V_{j-1}'s stages are free
       if (tid == 0) {
         if (j + S < nk) load_tile(tk, Ks, kbar, j + S);
@@ -401,7 +453,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     fence_regs(s);
     __syncthreads();  // every warp is done with K_0's stage
     if (tid == 0 && S < nk) load_tile(tk, Ks, kbar, S);
-    exp_pack(s, pa0, mb0, mb1, 0);
+    exp_tile(s, pa0, 0);
     auto step = [&](int j, auto buf) {
       constexpr int B = decltype(buf)::value;  // j & 1
       auto& cur = pick<B>(pa0, pa1);
@@ -422,7 +474,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
         if (j + S < nk) load_tile(tk, Ks, kbar, j + S);
         if (j >= S) load_tile(tv, Vs, vbar, j);
       }
-      exp_pack(s, cur, mb0, mb1, j);
+      exp_tile(s, cur, j);
     };
     int j = 1;
     for (; j + 1 < nk; j += 2) {
@@ -473,7 +525,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
         if (j + S < nk) load_tile(tk, Ks, kbar, j + S);
         if (j + 1 >= S && j + 1 < nk) load_tile(tv, Vs, vbar, j + 1);
       }
-      exp_pack(cur, pa, mb0, mb1, j);
+      exp_tile(cur, pa, j);
       wait_v(j);
       wg_fence();
       fence_regs(o);
@@ -495,11 +547,15 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
   wg_wait<0>();
   fence_regs(o);
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  if constexpr (kMode != kOnline) {
+  quad_sum(l0, l1);
+  if constexpr (kMode == kPartial) {
+    // JAX's partial stats: the running max (log2 domain) and the unclamped
+    // normalizer, one value per query row, held alike by the row's quad.
+    const long long rows = ((long long)b * p.H + h) * p.Lq;
+    if (t4 == 0 && r0 < p.Lq) p.m_out[rows + r0] = m0, p.l_out[rows + r0] = l0;
+    if (t4 == 0 && r1 < p.Lq) p.m_out[rows + r1] = m1, p.l_out[rows + r1] = l1;
+  }
+  if constexpr (!kRunningMax) {
     l0 = fmaxf(l0, 1e-37f);
     l1 = fmaxf(l1, 1e-37f);
   }
@@ -507,6 +563,264 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
   __nv_bfloat16* ob = p.o + (long long)b * p.Lq * row_stride + (long long)h * D;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + 2 * t4;
+    if (r0 < p.Lq)
+      *reinterpret_cast<uint32_t*>(ob + (long long)r0 * row_stride + col) =
+          pack_bf16(o[4 * n] / l0, o[4 * n + 1] / l0);
+    if (r1 < p.Lq)
+      *reinterpret_cast<uint32_t*>(ob + (long long)r1 * row_stride + col) =
+          pack_bf16(o[4 * n + 2] / l1, o[4 * n + 3] / l1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernels 1 and 2 at the wide heads, D = 256 and 512 (the VAE's mid-block
+// attention, one head at D = 512; JAX's kernels take it at block_k <= 512).
+//
+// A 64-row fp32 accumulator over all of D = 512 is 256 registers a thread,
+// more than a thread has, and rows per block set the L2 traffic (every block
+// streams its head's whole K and V).  So a block holds 64 query rows and its
+// two warpgroups split D:
+//   * warpgroup w forms the partial scores of its D/2 columns, Q K^T from
+//     shared memory (wgmma m64nBKk16 over D/32 k16 steps);
+//   * the two partial tiles are summed through shared memory: each thread
+//     writes its 16 partial scores and reads the other warpgroup's thread of
+//     the same (warp, lane), which holds the same elements; s0 + s1 is one
+//     fp32 addition, the same in either order, so both warpgroups hold
+//     identical scores bit for bit, hence the same P, m and l.  Two buffers,
+//     alternating by tile, so one barrier per tile suffices; that barrier
+//     also frees K_t's stage (both QK^T_t have landed) and V_{t-2}'s;
+//   * each warpgroup runs the softmax on the whole tile (every score's exp2
+//     is taken twice, once per warpgroup, against 2 D products) and issues
+//     PV for its own D/2 output columns (m64n{D/2}k16, P from registers, V
+//     MN-major).  The score tile is carried, as kernel 6 carries it: tile
+//     t+1's QK^T is issued before tile t's softmax, so the tensor cores run
+//     it while the warps exchange and exponentiate tile t, and PV_t is issued
+//     a step later, so V_{t+1} is requested a whole step before it is read
+//     (with two stages, V_{t+1} waits for PV_{t-1}'s stage);
+//   * BK = 32 keys a tile at D = 512.  Shared memory: Q 64 rows x D (64 KB at
+//     D = 512, pre-scaled in place), K and V tiles BK x D (32 KB each) in two
+//     stages, and the score buffers 2 x 2 x 64 x BK x 4 B (32 KB): 224 KB of
+//     the 227 KB a block may have; 64-key tiles would need 288 KB.  At D = 256
+//     (no path launches it) the same template takes BK = 64 in 224 KB,
+//     measured faster than 32 (scripts/torch_wide_attention_tile.py);
+//   * every block streams its head's K and V from L2 itself.  Two-block
+//     clusters sharing each K and V tile by TMA multicast (half the L2
+//     reads) measured slower at every shape: the L2 stream does not bound
+//     this body; shared-memory traffic per key (Q re-read by every QK^T
+//     wgmma, the tiles' TMA writes, the exchange) is the likelier limit.
+// ---------------------------------------------------------------------------
+#ifdef DRT_WIDE_BLOCK_K_D256
+template <int D> constexpr int kWideBlockK = D == 256 ? DRT_WIDE_BLOCK_K_D256 : 32;
+#else
+template <int D> constexpr int kWideBlockK = D == 256 ? 64 : 32;
+#endif
+
+template <int D> struct WideCfg {
+  static constexpr int BQ = 64;              // one wgmma m64, shared by both warpgroups
+  static constexpr int BK = kWideBlockK<D>;
+  static constexpr int DS = D / kWGS;        // a warpgroup's head-dim slice
+  static constexpr int NB = D / 64;          // 128-byte boxes per bf16 row
+  static constexpr int STAGES = 2;
+  static constexpr int Q_BYTES = NB * BQ * 128;
+  static constexpr int T_BYTES = NB * BK * 128;
+  static constexpr int X_BYTES = BQ * BK * 4;  // one warpgroup's partial scores
+  static constexpr int X_OFFSET = Q_BYTES + 2 * STAGES * T_BYTES;
+  static constexpr int BAR_OFFSET = X_OFFSET + 2 * kWGS * X_BYTES;
+  static constexpr int SCRATCH_OFFSET = BAR_OFFSET + 8 * (1 + 2 * STAGES);
+  static constexpr size_t smem_bytes = SCRATCH_OFFSET + 4 * (kThreads / 32 + 1);
+  static_assert(smem_bytes <= 232448, "more than the 227 KB of shared memory a block may have");
+};
+
+template <int D, Mode kMode>
+__device__ __forceinline__ void attend_wide(const CUtensorMap* tq, const CUtensorMap* tk,
+                                            const CUtensorMap* tv, const Args& p,
+                                            unsigned char* smem) {
+  using C = WideCfg<D>;
+  static_assert(kMode == kNoShift || kMode == kOnline, "the wide heads take kernels 1 and 2");
+  constexpr int BK = C::BK, S = C::STAGES;
+  constexpr int NS = BK / 2;       // S accumulator registers
+  constexpr int NO = C::DS / 2;    // output accumulator registers
+  constexpr int KP = BK / 16;      // k16 steps of PV
+  constexpr int KQ = C::DS / 16;   // k16 steps of a warpgroup's partial QK^T
+  unsigned char* Qs = smem;
+  unsigned char* Ks = Qs + C::Q_BYTES;
+  unsigned char* Vs = Ks + S * C::T_BYTES;
+  float4* xs = reinterpret_cast<float4*>(smem + C::X_OFFSET);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + C::BAR_OFFSET);
+  uint64_t* kbar = qbar + 1;
+  uint64_t* vbar = kbar + S;
+
+  const int tid = threadIdx.x, wg = tid >> 7, tw = tid & 127, warp = tw >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * C::BQ;
+  const int nk = (p.Lk + BK - 1) / BK;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(kbar + s, 1);
+      mbar_init(vbar + s, 1);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Key tile t of K or V into its stage, by one thread.
+  auto load_tile = [&](const CUtensorMap* map, unsigned char* ring, uint64_t* bars, int t) {
+    const int s = t % S;
+    mbar_expect_tx(bars + s, C::T_BYTES);
+#pragma unroll
+    for (int nb = 0; nb < C::NB; ++nb)
+      tma_load_4d(ring + s * C::T_BYTES + nb * BK * 128, map, bars + s, nb * 64, h, t * BK, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(qbar, C::Q_BYTES);
+#pragma unroll
+    for (int nb = 0; nb < C::NB; ++nb)
+      tma_load_4d(Qs + nb * C::BQ * 128, tq, qbar, nb * 64, h, q0, b);
+    for (int t = 0; t < S && t < nk; ++t) {
+      load_tile(tk, Ks, kbar, t);
+      load_tile(tv, Vs, vbar, t);
+    }
+  }
+  mbar_wait(qbar, 0);
+  prescale_q<C::Q_BYTES>(Qs, p.q_scale);
+
+  // This warpgroup's D slice: the boxes from D / 128 * wg on of Q, K and V.
+  const uint32_t box0 = wg * (C::DS / 64);
+  const uint32_t q_addr = smem_u32(Qs) + box0 * C::BQ * 128, k_addr = smem_u32(Ks) + box0 * BK * 128,
+                 v_addr = smem_u32(Vs) + box0 * BK * 128;
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float l0 = 0.f, l1 = 0.f;
+
+  auto wait_k = [&](int t) { mbar_wait(kbar + t % S, (t / S) & 1); };
+  auto wait_v = [&](int t) { mbar_wait(vbar + t % S, (t / S) & 1); };
+  // dst = q' K_t^T over this warpgroup's D slice; one commit group.
+  auto issue_qk = [&](float (&dst)[NS], int t) {
+    const uint32_t kb = k_addr + (t % S) * C::T_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < KQ; ++ks)
+      mma_ss<BK>(dst, kmajor(q_addr, C::BQ, ks), kmajor(kb, BK, ks), ks);
+    wg_commit();
+  };
+  // acc += P V_t over this warpgroup's D / 2 output columns.
+  auto issue_pv = [&](const uint32_t (&pa)[KP][4], int t) {
+    const uint32_t vb = v_addr + (t % S) * C::T_BYTES;
+#pragma unroll
+    for (int kp = 0; kp < KP; ++kp)
+      mma_rs_tb<C::DS>(o, pa[kp], make_desc(vb + kp * 16 * 128, BK * 128, 1024, 128), 1);
+    wg_commit();
+  };
+  // s += the other warpgroup's partial scores of tile t.  The barrier finds
+  // QK^T_t and PV_{t-1} landed in both warpgroups, so K_t's and V_{t-1}'s
+  // stages are refilled: K_{t+2} and V_{t+1}.
+  auto exchange = [&](float (&x)[NS], int t) {
+    float4* mine = xs + ((t & 1) * kWGS + wg) * (C::X_BYTES / 16);
+    const float4* other = xs + ((t & 1) * kWGS + (wg ^ 1)) * (C::X_BYTES / 16);
+#pragma unroll
+    for (int i = 0; i < NS / 4; ++i)
+      mine[i * 128 + tw] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NS / 4; ++i) {
+      const float4 y = other[i * 128 + tw];
+      x[4 * i] += y.x;
+      x[4 * i + 1] += y.y;
+      x[4 * i + 2] += y.z;
+      x[4 * i + 3] += y.w;
+    }
+    if (tid == 0) {
+      if (t + 2 < nk) load_tile(tk, Ks, kbar, t + 2);
+      if (t >= 1 && t + 1 < nk) load_tile(tv, Vs, vbar, t + 1);
+    }
+  };
+
+  // Tile j's scores in s0 (j even) or s1 (j odd).  Step j issues PV_{j-1}
+  // and then QK^T_{j+1}, waits for PV_{j-1} and S_j (issued a step earlier),
+  // and runs tile j's softmax while QK^T_{j+1} is in flight: the tensor cores
+  // take tile j+1's products while the warps take tile j's exp2, and V_{j+1}
+  // is requested a whole step before PV_{j+1} reads it.  Whether a previous
+  // PV and a next QK^T exist are compile-time arguments, so every wgmma is
+  // issued on every path through the loop (ptxas keeps them pipelined).
+  float s0[NS], s1[NS], m0 = kNegInf, m1 = kNegInf;
+  uint32_t pa[KP][4];
+  auto step = [&](int j, auto buf, auto prev, auto next) {
+    constexpr int B = decltype(buf)::value;        // j & 1
+    constexpr bool kPrev = decltype(prev)::value;  // j >= 1
+    constexpr bool kNext = decltype(next)::value;  // j + 1 < nk
+    auto& cur = pick<B>(s0, s1);
+    auto& nxt = pick<1 - B>(s0, s1);
+    wg_fence();
+    if constexpr (kPrev) {
+      wait_v(j - 1);
+      fence_regs(o);
+      fence_regs(pa);
+      issue_pv(pa, j - 1);
+    }
+    if constexpr (kNext) {
+      wait_k(j + 1);
+      fence_regs(nxt);
+      issue_qk(nxt, j + 1);
+      wg_wait<1>();  // S_j and PV_{j-1} have landed; S_{j+1} runs on
+    } else {
+      wg_wait<0>();
+    }
+    fence_regs(cur);
+    fence_regs(o);
+    fence_regs(pa);
+    exchange(cur, j);
+    if constexpr (kMode == kOnline) {
+      float a0, a1;
+      online_softmax<BK, true>(cur, j * BK, p.Lk, t4, m0, m1, l0, l1, a0, a1);
+      rescale(o, a0, a1);  // no PV is in flight
+      pack_p<BK>(cur, pa);
+    } else {
+      const int lim = (j + 1) * BK > p.Lk ? p.Lk - j * BK - 2 * t4 : BK;
+      exp_pack<BK>(cur, pa, 0.f, 0.f, lim, l0, l1);
+    }
+  };
+
+  wait_k(0);
+  fence_regs(o);  // acc's zeros are defined before the first wgmma is in flight
+  wg_fence();
+  issue_qk(s0, 0);
+  if (nk == 1) {
+    step(0, Buf<0>{}, Buf<0>{}, Buf<0>{});
+  } else {
+    step(0, Buf<0>{}, Buf<0>{}, Buf<1>{});
+    int j = 1;
+    for (; j + 2 < nk; j += 2) {
+      step(j, Buf<1>{}, Buf<1>{}, Buf<1>{});
+      step(j + 1, Buf<0>{}, Buf<1>{}, Buf<1>{});
+    }
+    if (j + 1 < nk) {
+      step(j, Buf<1>{}, Buf<1>{}, Buf<1>{});
+      step(j + 1, Buf<0>{}, Buf<1>{}, Buf<0>{});
+    } else {
+      step(j, Buf<1>{}, Buf<1>{}, Buf<0>{});
+    }
+  }
+  wait_v(nk - 1);
+  wg_fence();
+  fence_regs(o);
+  fence_regs(pa);
+  issue_pv(pa, nk - 1);
+  wg_wait<0>();
+  fence_regs(o);
+
+  quad_sum(l0, l1);
+  if constexpr (kMode == kNoShift) {
+    l0 = fmaxf(l0, 1e-37f);
+    l1 = fmaxf(l1, 1e-37f);
+  }
+  const long long row_stride = (long long)p.H * D;
+  __nv_bfloat16* ob = p.o + (long long)b * p.Lq * row_stride + (long long)h * D + wg * C::DS;
+#pragma unroll
+  for (int n = 0; n < C::DS / 8; ++n) {
     const int col = n * 8 + 2 * t4;
     if (r0 < p.Lq)
       *reinterpret_cast<uint32_t*>(ob + (long long)r0 * row_stride + col) =
@@ -540,6 +854,37 @@ __global__ void __launch_bounds__(kThreads)
     attend<D, kOnline>(&tq, &tk, &tv, p, smem);
 }
 
+// The same at the wide heads (D = 256, 512), on attend_wide.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    attention_kernel_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const Args p) {
+  using C = WideCfg<D>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (smem_u32(smem) & 1023) __trap();
+  const int noshift =
+      p.bounded ? rule::block_noshift<kThreads>(p.stats, p.B * p.H, p.log2_lk_pad,
+                                                reinterpret_cast<float*>(smem + C::SCRATCH_OFFSET))
+                : 0;
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
+    atomicAdd(p.tally + (noshift ? 0 : 1), 1);
+  if (noshift)
+    attend_wide<D, kNoShift>(&tq, &tk, &tv, p, smem);
+  else
+    attend_wide<D, kOnline>(&tq, &tk, &tv, p, smem);
+}
+
+// Kernel 3: the online body over this call's keys, with the per-row m and l
+// a cross-shard merge needs.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    partial_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Args p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (smem_u32(smem) & 1023) __trap();
+  attend<D, kPartial>(&tq, &tk, &tv, p, smem);
+}
+
 // Kernels 6 (kBoundedPipe) and 7 (kBounded): the bounded softmax on the
 // caller's row bound.
 template <int D, Mode kMode>
@@ -553,10 +898,11 @@ __global__ void __launch_bounds__(kThreads)
 
 typedef void (*KernelFn)(CUtensorMap, CUtensorMap, CUtensorMap, Args);
 
-template <int D, int BK>
+// One launch of `kernel` laid out by C (Cfg or WideCfg): BQ query rows a
+// block, BK-key tiles.
+template <int D, typename C>
 int launch(KernelFn kernel, const void* q, const void* k, const void* v, const Args& a,
            cudaStream_t stream) {
-  using C = Cfg<D, BK>;
   CUtensorMap mq, mk, mv;
   int e = encode_bshd(&mq, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.B, a.Lq, a.H, D, 128, C::BQ);
   if (e == 0) e = encode_bshd(&mk, k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.B, a.Lk, a.H, D, 128, C::BK);
@@ -571,10 +917,14 @@ int launch(KernelFn kernel, const void* q, const void* k, const void* v, const A
 }
 
 // The kernel of `which` and its dynamic shared bytes: 0 = kernels 1 and 2's
-// launch, 1 = kernel 6, 2 = kernel 7.
+// launch, 1 = kernel 6, 2 = kernel 7, 3 = kernel 3.
 int kernel_of(int which, int D, KernelFn* fn, size_t* smem) {
   if (which == 0 && D == 64) *fn = attention_kernel<64>, *smem = Cfg<64, kBlockK<kOnline, 64>>::smem_bytes;
   else if (which == 0 && D == 128) *fn = attention_kernel<128>, *smem = Cfg<128, kBlockK<kOnline, 128>>::smem_bytes;
+  else if (which == 0 && D == 256) *fn = attention_kernel_wide<256>, *smem = WideCfg<256>::smem_bytes;
+  else if (which == 0 && D == 512) *fn = attention_kernel_wide<512>, *smem = WideCfg<512>::smem_bytes;
+  else if (which == 3 && D == 64) *fn = partial_kernel<64>, *smem = Cfg<64, kBlockK<kPartial, 64>>::smem_bytes;
+  else if (which == 3 && D == 128) *fn = partial_kernel<128>, *smem = Cfg<128, kBlockK<kPartial, 128>>::smem_bytes;
   else if (which == 1 && D == 64) *fn = bounded_kernel<64, kBoundedPipe>, *smem = Cfg<64, kBlockK<kBoundedPipe, 64>>::smem_bytes;
   else if (which == 1 && D == 128) *fn = bounded_kernel<128, kBoundedPipe>, *smem = Cfg<128, kBlockK<kBoundedPipe, 128>>::smem_bytes;
   else if (which == 2 && D == 64) *fn = bounded_kernel<64, kBounded>, *smem = Cfg<64, kBlockK<kBounded, 64>>::smem_bytes;
@@ -592,7 +942,9 @@ bool bad_sizes(int B, int Lq, int Lk, int H) {
 extern "C" {
 
 const char* drt_flash_wgmma_error_string(int code) {
-  if (code == kUnsupported) return "unsupported head dim or sizes (the wgmma kernels take D = 64, 128)";
+  if (code == kUnsupported)
+    return "unsupported head dim or sizes (the wgmma kernels take D = 64, 128; kernels 1 and 2 "
+           "also 256, 512)";
   if (code == kEncodeFailed) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -609,10 +961,26 @@ int drt_flash_wgmma_attention(const void* q, const void* k, const void* v, void*
          nullptr, B, Lq, Lk, H, q_scale, log2_lk_pad, bounded};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64, kBlockK<kOnline, 64>>(attention_kernel<64>, q, k, v, a, st);
-    case 128: return launch<128, kBlockK<kOnline, 128>>(attention_kernel<128>, q, k, v, a, st);
+    case 64: return launch<64, Cfg<64, kBlockK<kOnline, 64>>>(attention_kernel<64>, q, k, v, a, st);
+    case 128: return launch<128, Cfg<128, kBlockK<kOnline, 128>>>(attention_kernel<128>, q, k, v, a, st);
+    case 256: return launch<256, WideCfg<256>>(attention_kernel_wide<256>, q, k, v, a, st);
+    case 512: return launch<512, WideCfg<512>>(attention_kernel_wide<512>, q, k, v, a, st);
     default: return kUnsupported;
   }
+}
+
+// Kernel 3 on (B, L, H, D) bf16 q, k, v at D = 64, 128: out, and fp32
+// (B, H, Lq) m and l written for every query row.
+int drt_flash_wgmma_partial(const void* q, const void* k, const void* v, void* o, void* m, void* l,
+                            int B, int Lq, int Lk, int H, int D, float q_scale, void* stream) {
+  KernelFn fn;
+  size_t smem;
+  if (bad_sizes(B, Lq, Lk, H) || kernel_of(3, D, &fn, &smem) != 0) return kUnsupported;
+  Args a{static_cast<__nv_bfloat16*>(o), nullptr, nullptr, nullptr, B, Lq, Lk, H, q_scale, 0.f, 0,
+         static_cast<float*>(m), static_cast<float*>(l)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch<64, Cfg<64, kBlockK<kPartial, 64>>>(fn, q, k, v, a, st)
+                 : launch<128, Cfg<128, kBlockK<kPartial, 128>>>(fn, q, k, v, a, st);
 }
 
 // Kernel 6 (pipelined) or 7 on (B, L, H, D) bf16 q, k, v and the fp32
@@ -628,14 +996,15 @@ int drt_flash_wgmma_bounded(const void* q, const void* k, const void* v, void* o
          B, Lq, Lk, H, q_scale, 0.f, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pipelined)
-    return D == 64 ? launch<64, kBlockK<kBoundedPipe, 64>>(fn, q, k, v, a, st)
-                   : launch<128, kBlockK<kBoundedPipe, 128>>(fn, q, k, v, a, st);
-  return D == 64 ? launch<64, kBlockK<kBounded, 64>>(fn, q, k, v, a, st)
-                 : launch<128, kBlockK<kBounded, 128>>(fn, q, k, v, a, st);
+    return D == 64 ? launch<64, Cfg<64, kBlockK<kBoundedPipe, 64>>>(fn, q, k, v, a, st)
+                   : launch<128, Cfg<128, kBlockK<kBoundedPipe, 128>>>(fn, q, k, v, a, st);
+  return D == 64 ? launch<64, Cfg<64, kBlockK<kBounded, 64>>>(fn, q, k, v, a, st)
+                 : launch<128, Cfg<128, kBlockK<kBounded, 128>>>(fn, q, k, v, a, st);
 }
 
-// which: 0 = kernels 1 and 2's launch, 1 = kernel 6, 2 = kernel 7.  out = {registers, local
-// (spill) bytes, dynamic shared bytes, resident blocks per SM, threads per block}.
+// which: 0 = kernels 1 and 2's launch (D = 64, 128, 256, 512), 1 = kernel 6, 2 = kernel 7,
+// 3 = kernel 3.  out = {registers, local (spill) bytes, dynamic shared bytes, resident blocks
+// per SM, threads per block}.
 int drt_flash_wgmma_occupancy(int which, int D, int* out) {
   KernelFn fn;
   size_t smem;

@@ -2,11 +2,11 @@
 
 Counterpart of diffusionrenderer_tpu/ops/flash_attention.py
 (`flash_attention(bounded=..., qk_int8=..., pv_int8=...)`).  The kernels are
-in `csrc/flash_attention_wgmma.cu` (kernels 1 and 2 in one launch, and
-kernels 6 and 7, on wgmma and TMA at head dims 64 and 128),
-`csrc/flash_attention.cu` (bf16 on mma.sync: kernels 1, 2, 6 and 7 at head
-dims 256 and 512, kernel 3 at every head dim, the headroom kernel) and
-`csrc/flash_attention_int8.cu`; this module holds
+in `csrc/flash_attention_wgmma.cu` (on wgmma and TMA: kernels 1 and 2 in one
+launch at every head dim, and kernels 3, 6 and 7 at head dims 64 and 128),
+`csrc/flash_attention.cu` (bf16 on mma.sync: kernels 3, 6 and 7 at head dims
+256 and 512, the headroom kernel) and `csrc/flash_attention_int8.cu`; this
+module holds
 
 * `flash_attention` - the entry point, with the JAX package's signature and
   defaults: the plain versions for CPU tensors, the kernels for CUDA tensors
@@ -80,8 +80,8 @@ HEAD_DIMS = (64, 128, 256, 512)
 # Keys per tile of the int8 kernel at each head dim it takes
 # (csrc/flash_attention_int8.cu, drt_flash_int8_block_k).
 INT8_BLOCK_K = {64: 64, 128: 64, 256: 64, 512: 32}
-# Head dims at which kernels 1, 2, 6 and 7 are the wgmma kernels
-# (csrc/flash_attention_wgmma.cu).
+# Head dims at which kernels 3, 6 and 7 are the wgmma kernels
+# (csrc/flash_attention_wgmma.cu); kernels 1 and 2 are at every head dim.
 WGMMA_HEAD_DIMS = (64, 128)
 _JAX_DEFAULT_BLOCK_K = 2816  # diffusionrenderer_tpu/ops/flash_attention.py DEFAULT_BLOCK_K
 
@@ -328,17 +328,12 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.drt_flash_headroom.argtypes = [ptr] * 4 + [i32] * 5 + [f32, ptr]
         lib.drt_flash_headroom.restype = i32
-        lib.drt_flash_attention.argtypes = (
-            [ptr] * 6 + [i32] * 5 + [f32, f32, i32, ptr])
-        lib.drt_flash_attention.restype = i32
         lib.drt_flash_attention_partial.argtypes = [ptr] * 6 + [i32] * 5 + [f32, ptr]
         lib.drt_flash_attention_partial.restype = i32
         lib.drt_flash_attention_bounded.argtypes = [ptr] * 5 + [i32] * 5 + [f32, i32, ptr]
         lib.drt_flash_attention_bounded.restype = i32
         lib.drt_error_string.argtypes = [i32]
         lib.drt_error_string.restype = ctypes.c_char_p
-        lib.drt_flash_occupancy.argtypes = [i32, ctypes.POINTER(i32)]
-        lib.drt_flash_occupancy.restype = i32
         _lib_handle = lib
     return _lib_handle
 
@@ -357,6 +352,8 @@ def _lib_wgmma() -> ctypes.CDLL:
         lib.drt_flash_wgmma_attention.restype = i32
         lib.drt_flash_wgmma_bounded.argtypes = [ptr] * 5 + [i32] * 5 + [f32, i32, ptr]
         lib.drt_flash_wgmma_bounded.restype = i32
+        lib.drt_flash_wgmma_partial.argtypes = [ptr] * 6 + [i32] * 5 + [f32, ptr]
+        lib.drt_flash_wgmma_partial.restype = i32
         lib.drt_flash_wgmma_error_string.argtypes = [i32]
         lib.drt_flash_wgmma_error_string.restype = ctypes.c_char_p
         lib.drt_flash_wgmma_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
@@ -464,7 +461,8 @@ def flash_headroom(q, k, v) -> torch.Tensor:
 def flash_attention_kernel(q, k, v, stats: Optional[torch.Tensor]) -> torch.Tensor:
     """Launch kernels 1 and 2 (one launch): stats (from flash_headroom) lets
     its blocks choose the branch on the device; None forces the online
-    branch.  The wgmma kernel at D = 64, 128, mma.sync at D = 256, 512."""
+    branch.  The wgmma kernel at every head dim (at D = 256 and 512 the
+    wide-head body: two warpgroups splitting D over 64 query rows)."""
     _check_kernel_inputs(q, k, v)
     b, lq, h, d = q.shape
     if stats is not None and (stats.device != q.device or stats.dtype != torch.float32
@@ -477,10 +475,7 @@ def flash_attention_kernel(q, k, v, stats: Optional[torch.Tensor]) -> torch.Tens
             math.log2(reference_lk_pad(k.shape[1], d)), int(stats is not None),
             _stream(q.device))
     with torch.cuda.device(q.device):
-        if d in WGMMA_HEAD_DIMS:
-            _raise_on_wgmma(_lib_wgmma().drt_flash_wgmma_attention(*args), "flash_attention")
-        else:
-            _raise_on(_lib().drt_flash_attention(*args), "flash_attention")
+        _raise_on_wgmma(_lib_wgmma().drt_flash_wgmma_attention(*args), "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -490,15 +485,13 @@ def kernel_occupancy(kernel: str, d: int, pv_int8: bool = False) -> Dict[str, in
     a thread, local (spill) bytes, dynamic shared bytes, resident blocks
     per SM and threads per block.  kernel: 'attention' (the launch holding
     kernels 1 and 2, any head dim), 'bounded_pipe' (kernel 6 at D = 64, 128),
-    'bounded' (kernel 7 at D = 64, 128) or 'int8' (kernel 5, pv_int8
-    selecting its mode)."""
+    'bounded' (kernel 7 at D = 64, 128), 'partial' (kernel 3 at D = 64, 128)
+    or 'int8' (kernel 5, pv_int8 selecting its mode)."""
     out = (ctypes.c_int * 5)()
-    if kernel == "attention" and d not in WGMMA_HEAD_DIMS:
-        lib = _lib()
-        err, why = lib.drt_flash_occupancy(d, out), lib.drt_error_string
-    elif kernel in ("attention", "bounded_pipe", "bounded"):
+    wgmma_kernels = ("attention", "bounded_pipe", "bounded", "partial")
+    if kernel in wgmma_kernels:
         lib = _lib_wgmma()
-        which = ("attention", "bounded_pipe", "bounded").index(kernel)
+        which = wgmma_kernels.index(kernel)
         err = lib.drt_flash_wgmma_occupancy(which, d, out)
         why = lib.drt_flash_wgmma_error_string
     elif kernel == "int8":
@@ -513,18 +506,21 @@ def kernel_occupancy(kernel: str, d: int, pv_int8: bool = False) -> Dict[str, in
 
 
 def flash_attention_partial_kernel(q, k, v):
-    """Launch kernel 3: (out, m, l) as flash_attention_partial_plain."""
+    """Launch kernel 3: (out, m, l) as flash_attention_partial_plain.  The
+    wgmma kernel at D = 64, 128 (kernel 2's online body: out is bitwise the
+    unbounded flash_attention's), mma.sync at 256, 512."""
     _check_kernel_inputs(q, k, v)
     b, lq, h, d = q.shape
     out = torch.empty_like(q)
     m = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+            b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype), _stream(q.device))
     with torch.cuda.device(q.device):
-        err = _lib().drt_flash_attention_partial(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m.data_ptr(),
-            l.data_ptr(), b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype),
-            _stream(q.device))
-    _raise_on(err, "flash_attention_partial")
+        if d in WGMMA_HEAD_DIMS:
+            _raise_on_wgmma(_lib_wgmma().drt_flash_wgmma_partial(*args), "flash_attention_partial")
+        else:
+            _raise_on(_lib().drt_flash_attention_partial(*args), "flash_attention_partial")
     VARIANT_LAUNCHES["flash_attention_partial"] += 1
     return out, m, l
 

@@ -7,12 +7,14 @@ a card and no JAX (tests/conftest.py imports JAX; skip it there):
 
 Every test is marked `cuda` and skips without a CUDA device.  Tolerances:
 the attention kernels compute in bf16 with fp32 softmax state and round
-where the plain version rounds (kernels 1, 2 and 6 at D = 64 and 128 on
-wgmma, the others on mma.sync), so outputs differ by about one bf16 ulp on
-a few elements: max |err| within 2e-2 of max |plain| (no floor) and a
-relative L2 error within 1e-2; the int8 attention kernel is held to its
-plain version at the kernel's own key tile; the partial-stats kernel's m and
-l and the bounded kernels' outputs to the same limits.  Kernel 6 is held
+where the plain version rounds (kernels 1 and 2 at every head dim and
+kernels 3, 6 and 7 at D = 64 and 128 on wgmma, the others on mma.sync), so
+outputs differ by about one bf16 ulp on a few elements: max |err| within
+2e-2 of max |plain| (no floor) and a relative L2 error within 1e-2; the
+int8 attention kernel is held to its plain version at the kernel's own key
+tile; the partial-stats kernel's m and l and the bounded kernels' outputs
+to the same limits, and the partial-stats kernel's output at D = 64 and 128
+bitwise to the unbounded call's (one online body).  Kernel 6 is held
 bitwise to kernel 7 at every head dim: at D = 64 and 128 both are the
 wgmma body, which sums l per thread in key order and issues PV in k16
 order whatever the key tile (kernel 7 takes 128 keys a tile at D = 128,
@@ -39,8 +41,8 @@ from diffusionrenderer_tpu_torch.ops.attention import attention, attention_xla
 pytestmark = pytest.mark.cuda
 
 CASES = [(5, 1024, 1024, 32, 128), (1, 300, 300, 2, 128), (2, 1000, 777, 4, 128),
-         (1, 4096, 4096, 1, 512), (2, 300, 200, 1, 512), (1, 256, 256, 2, 64),
-         (1, 256, 320, 2, 256)]
+         (1, 4096, 4096, 1, 512), (2, 300, 200, 1, 512), (1, 1000, 1200, 1, 512),
+         (1, 256, 256, 2, 64), (1, 256, 320, 2, 256)]
 
 
 @pytest.fixture
@@ -128,13 +130,15 @@ def test_wgmma_bounded_call_is_one_launch(cuda, b, lq, lk, h, d, q_scale, branch
     assert_close(got, tfa.flash_attention_plain(q, k, v, bounded=True))
 
 
-@pytest.mark.parametrize("d", [64, 128])
-def test_bounded_call_takes_each_branch_through_its_kernel(cuda, d):
-    """A bounded call at D = 64, 128 is one attention launch: with large
-    logits its blocks take the online branch (kernel 2), with unit-RMS
-    inputs the no-shift one (kernel 1); the tally counts one branch a call."""
+@pytest.mark.parametrize("b,lq,lk,h,d", [(2, 1000, 777, 4, 64), (2, 1000, 777, 4, 128),
+                                         (2, 1000, 777, 2, 256), (1, 1000, 1200, 1, 512)])
+def test_bounded_call_takes_each_branch_through_its_kernel(cuda, b, lq, lk, h, d):
+    """A bounded call is one attention launch at every head dim (the wide
+    heads' body at D = 256, 512): with large logits its blocks take the
+    online branch (kernel 2), with unit-RMS inputs the no-shift one (kernel
+    1); the tally counts one branch a call."""
     for q_scale, branch in ((100.0, "online"), (1.0, "noshift")):
-        q, k, v = qkv(cuda, 2, 1000, 777, 4, d, q_scale, seed=d)
+        q, k, v = qkv(cuda, b, lq, lk, h, d, q_scale, seed=d)
         tfa.reset_counts()
         got = tfa.flash_attention(q, k, v, bounded=True)
         torch.cuda.synchronize()
@@ -148,10 +152,12 @@ def test_bounded_call_takes_each_branch_through_its_kernel(cuda, d):
 
 def test_kernel_occupancy(cuda):
     """No spills, and at least 8 warps per SM resident, for the wgmma kernels:
-    the launch of kernels 1 and 2 and kernels 6 and 7 at D = 64 and 128,
-    kernel 5, and kernel 4 per channel and grouped."""
+    the launch of kernels 1 and 2 at every head dim, kernels 3, 6 and 7 at
+    D = 64 and 128, kernel 5, and kernel 4 per channel and grouped."""
     occs = {(kernel, d, pv8): tfa.kernel_occupancy(kernel, d, pv8)
             for kernel, d, pv8 in (("attention", 64, False), ("attention", 128, False),
+                                   ("attention", 256, False), ("attention", 512, False),
+                                   ("partial", 64, False), ("partial", 128, False),
                                    ("bounded_pipe", 64, False), ("bounded_pipe", 128, False),
                                    ("bounded", 64, False), ("bounded", 128, False),
                                    ("int8", 64, False), ("int8", 128, False),
@@ -373,7 +379,14 @@ def aligned_qkv(device, b, lq, lk, h, d, q_scale, seed=0):
     return q.bfloat16(), k.bfloat16(), v.bfloat16()
 
 
-@pytest.mark.parametrize("b,lq,lk,h,d", CASES)
+# Kernel 3's edges on the wgmma body (128 query rows and 128 keys a block):
+# Lq not a multiple of 128, fewer keys than one tile, Lk not a multiple of
+# 128, several (b, h).
+PARTIAL_CASES = CASES + [(2, 100, 40, 3, 128), (3, 333, 250, 2, 64), (1, 130, 77, 8, 64),
+                         (4, 1024, 1024, 32, 128)]
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", PARTIAL_CASES)
 @pytest.mark.parametrize("q_scale", [1.0, 100.0])
 def test_partial_kernel_matches_plain(cuda, b, lq, lk, h, d, q_scale):
     q, k, v = qkv(cuda, b, lq, lk, h, d, q_scale)
@@ -386,6 +399,16 @@ def test_partial_kernel_matches_plain(cuda, b, lq, lk, h, d, q_scale):
     want = tfa.flash_attention_partial_plain(q, k, v)
     for got_x, want_x in zip((out, m, l), want):
         assert_close(got_x, want_x)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", [c for c in PARTIAL_CASES if c[4] in tfa.WGMMA_HEAD_DIMS])
+@pytest.mark.parametrize("q_scale", [1.0, 30.0])
+def test_partial_kernel_out_is_the_unbounded_call(cuda, b, lq, lk, h, d, q_scale):
+    """At D = 64, 128 kernel 3 is kernel 2's online body plus the stores of m
+    and l: its output is bit for bit the unbounded flash_attention's."""
+    q, k, v = qkv(cuda, b, lq, lk, h, d, q_scale, seed=lq + lk + d + 3)
+    out, _, _ = tfa.flash_attention_partial(q, k, v)
+    assert torch.equal(out, tfa.flash_attention(q, k, v, bounded=False))
 
 
 @pytest.mark.parametrize("b,lq,lk,h,d", CASES)

@@ -3,7 +3,8 @@
 On the CPU the port runs the kernels' plain version; it is held against
 JAX's `flash_attention(bounded=True)` in Pallas interpret mode and against
 `attention_xla`, for both branches, at the DiT's D=128 (even and ragged
-lengths) and the VAE's D=512.  The branch the port picks must be the one
+lengths), D=64 and the VAE's D=512 (even, ragged, and fewer keys than one
+tile).  The branch the port picks must be the one
 JAX's headroom rule picks (tests/test_torch_cuda.py holds the CUDA kernels
 against this plain version on the card).  Tolerances: 2e-5 in the no-shift
 branch and at unit-scale logits (fp32, differently ordered sums),
@@ -24,8 +25,12 @@ from diffusionrenderer_tpu.ops.attention import attention_xla as j_attention_xla
 from diffusionrenderer_tpu_torch.ops import flash_attention as tfa
 from diffusionrenderer_tpu_torch.ops.attention import attention, attention_xla
 
+# Even and ragged lengths; then the edges of the card's kernels (64 query
+# rows a block and 32 keys a tile at D = 512, 128 and 128 at D <= 128):
+# ragged Lq and Lk at D = 512 and D = 64, and fewer keys than one tile.
 CASES = [(1, 256, 256, 2, 128), (1, 300, 300, 2, 128), (1, 256, 256, 1, 512),
-         (2, 200, 328, 1, 128)]
+         (2, 200, 328, 1, 128), (1, 100, 150, 1, 512), (2, 130, 97, 3, 64),
+         (1, 70, 20, 2, 512)]
 
 
 def make_qkv(b, lq, lk, h, d, seed=0, q_scale=1.0):

@@ -3,7 +3,7 @@ the JAX package's.
 
 On the CPU `flash_attention_partial` runs its plain version; its out, m and
 l are held against JAX's `flash_attention_partial` in Pallas interpret mode
-at D in {64, 128}, even and ragged key lengths, in fp32 at 2e-5 (relative
+at D in {64, 128, 512}, even and ragged lengths, fewer keys than one tile, in fp32 at 2e-5 (relative
 for l and m, whose size grows with Lk and the logits): exact softmax
 statistics, summed in another order.  Merging the partial states of n key
 shards with the ring's `_merge` must give `attention_xla` of the whole key
@@ -20,8 +20,12 @@ from diffusionrenderer_tpu.ops.attention import attention_xla as j_attention_xla
 from diffusionrenderer_tpu_torch.ops import flash_attention as tfa
 from diffusionrenderer_tpu_torch.parallel.ring_attention import _merge, _partial_attn_flash
 
+# Even and ragged lengths; then the edges of the card's kernel 3 (128 query
+# rows and 128 keys a block at D <= 128): Lq not a multiple of 128, fewer
+# keys than one tile, Lk not a multiple of 128 with B * H > 1, and D = 512.
 CASES = [(1, 256, 256, 2, 128), (2, 200, 328, 1, 128), (1, 256, 300, 2, 64),
-         (2, 130, 97, 3, 64)]
+         (2, 130, 97, 3, 64), (1, 100, 40, 2, 128), (3, 77, 129, 2, 64),
+         (1, 64, 100, 1, 512)]
 
 
 def make_qkv(b, lq, lk, h, d, seed=0, q_scale=1.0):
