@@ -116,6 +116,27 @@ Phases (any failure raises and exits non-zero):
                (the device time alone, where the event time of a small shape
                reads the host's launch rate); the host cost of a bounded and
                an unbounded call (tensor maps encoded per call).
+  24. checkpoints - the seeded full-width DiT (28 blocks, 4096 wide) written
+               in bf16 as a reference-format .safetensors file (~13.7 GiB,
+               under build/, removed at the end) and the CV8x8x8 VAE as a
+               diffusers directory with the bundled latent statistics in its
+               config.json; load_pipeline(dit_checkpoint=..., vae_checkpoint=...)
+               bitwise equal to the in-memory weights with a device peak
+               within the weights plus 1 GiB; the same files quantized on load
+               (W8A8) bitwise equal to quantize_dit_params of the in-memory
+               weights, and one W8A8 DiT forward from each bitwise equal (168
+               kernel-4 launches); the W8A8 tree through save_native /
+               restore_native bitwise.  Write, load and round-trip seconds.
+  25. long video - from phase 24's pipeline, inverse_render(passes=
+               ('basecolor',)) of a seeded uint8 (1, 57, 704, 1280, 3) clip
+               (8 latent frames, 28,160 tokens) with decode_chunk_frames = 4:
+               outputs finite in [0, 1], the first chunk's 25 frames bitwise
+               an unchunked decode of latents 0-3 of the same sample, one
+               headroom and one attention launch per DiT block and step plus
+               one per encode and per decode chunk (424); phase seconds, ms
+               per DiT step, and the decoder's peak chunked and unchunked.
+  26. guidance - one pass at 512x512, 1 frame, guidance 1.0 and 0.0, first
+               call and 3 warm calls each (median ms per DiT step).
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -1959,6 +1980,280 @@ def forward_reference_phase(pipe):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Real checkpoints, long video and guidance
+# ---------------------------------------------------------------------------
+
+# Phase 24's checkpoints go here (build/ is not committed); the phase
+# removes them.
+CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
+# The long-video job: 57 frames at 704 x 1280, 8 latent frames, decoded in
+# chunks of 4 latents (3 chunks: 25 + 24 + 8 frames).
+LONG_VIDEO = (1, 57, 704, 1280, 3)
+LONG_VIDEO_CHUNK = 4
+GIB = 2 ** 30
+
+
+def _flat_equal(got, want) -> int:
+    """Assert two parameter trees hold the same leaves bit for bit; the
+    number of leaves compared."""
+    import torch
+    from diffusionrenderer_tpu_torch.checkpoint import _flatten
+
+    a, b = _flatten(got), _flatten(want)
+    check(sorted(a) == sorted(b), f"trees differ in keys: {sorted(set(a) ^ set(b))[:5]}")
+    for k, v in a.items():
+        check(v.dtype == b[k].dtype and v.shape == b[k].shape and torch.equal(v, b[k]),
+              f"leaf {k} differs")
+    return len(a)
+
+
+def checkpoint_phase():
+    """Write the seeded full-width DiT as a reference-format .safetensors
+    file and the CV8x8x8 VAE as a diffusers directory, load both through
+    load_pipeline (bf16, then quantized on load), hold every parameter
+    bitwise against the in-memory weights, and round-trip the W8A8 tree
+    through the native format.  Returns the bf16 pipeline and the record."""
+    import shutil
+
+    import torch
+    from diffusionrenderer_tpu_torch.api import load_pipeline
+    from diffusionrenderer_tpu_torch.checkpoint import (export_dit_state_dict, restore_native,
+                                                        save_native)
+    from diffusionrenderer_tpu_torch.checkpoint_vae import (bundled_latent_stats,
+                                                            export_diffusers_vae_state_dict)
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+    from diffusionrenderer_tpu_torch.models.dit import dit_forward, dit_param_count, init_dit_params
+    from diffusionrenderer_tpu_torch.models.quant import quantize_dit_params
+    from diffusionrenderer_tpu_torch.models.vae import init_vae_params
+    from diffusionrenderer_tpu_torch.ops import quant_matmul as qm
+    from diffusionrenderer_tpu_torch.utils.safetensors import write_safetensors
+
+    cfg = get_inverse_renderer_config(512, 512, 1)
+    net, vae = cfg.net, cfg.vae
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    df = subprocess.run(["df", "-h", CKPT_DIR], capture_output=True, text=True,
+                        timeout=60).stdout.strip()
+    say("  " + df.replace("\n", "\n  "))
+    free = shutil.disk_usage(CKPT_DIR).free
+    need = dit_param_count(net) * 2 + GIB  # the bf16 file, the VAE and a margin
+    rec = {"disk_free_gib": free / GIB, "dit_file_need_gib": need / GIB,
+           "blocks": net.num_blocks}
+    check(free >= need, f"the disk holds {free / GIB:.1f} GiB, the checkpoint needs "
+                        f"{need / GIB:.1f} GiB")
+    dit_path = os.path.join(CKPT_DIR, "dit.safetensors")
+    vae_dir = os.path.join(CKPT_DIR, "vae")
+    native_path = os.path.join(CKPT_DIR, "dit_w8a8_native.safetensors")
+    try:
+        params = init_dit_params(net, device="cuda", dtype=torch.bfloat16, seed=0)
+        vparams = init_vae_params(vae, device="cuda", dtype=torch.bfloat16, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write_safetensors(dit_path, export_dit_state_dict(params, net))
+        rec["dit_write_s"] = time.perf_counter() - t0
+        rec["dit_file_gib"] = os.path.getsize(dit_path) / GIB
+        t0 = time.perf_counter()
+        os.makedirs(vae_dir)
+        write_safetensors(os.path.join(vae_dir, "diffusion_pytorch_model.safetensors"),
+                          export_diffusers_vae_state_dict(vparams, vae))
+        stats = bundled_latent_stats()
+        with open(os.path.join(vae_dir, "config.json"), "w") as f:
+            json.dump({"_class_name": "AutoencoderKLCosmos", **stats}, f)
+        rec["vae_write_s"] = time.perf_counter() - t0
+        rec["vae_file_gib"] = os.path.getsize(
+            os.path.join(vae_dir, "diffusion_pytorch_model.safetensors")) / GIB
+
+        # The bf16 load: every parameter bitwise the in-memory weights, the
+        # device peak within the weights plus 1 GiB.
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = load_pipeline(dit_checkpoint=dit_path, vae_checkpoint=vae_dir)
+        torch.cuda.synchronize()
+        rec["load_s"] = time.perf_counter() - t0
+        rec["load_weights_gib"] = (torch.cuda.memory_allocated() - base) / GIB
+        rec["load_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / GIB
+        rec["load_gib_per_s"] = (rec["dit_file_gib"] + rec["vae_file_gib"]) / rec["load_s"]
+        rec["dit_leaves_bitwise"] = _flat_equal(pipe.dit_params, params)
+        want_vae = dict(vparams)
+        for key in ("latents_mean", "latents_std"):
+            want_vae[key] = torch.tensor(stats[key], dtype=torch.float32,
+                                         device="cuda").reshape(vae.latent_channels,
+                                                                vae.max_latent_frames)
+        rec["vae_leaves_bitwise"] = _flat_equal(pipe.vae_params, want_vae)
+        check(rec["load_peak_gib"] <= rec["load_weights_gib"] + 1.0,
+              f"load peak {rec['load_peak_gib']:.2f} GiB exceeds the weights "
+              f"{rec['load_weights_gib']:.2f} GiB + 1 GiB")
+        del vparams, want_vae
+
+        # Quantized on load (W8A8, per channel): the codes and scales of
+        # quantize_dit_params of the in-memory weights, and the same W8A8
+        # forward bit for bit.
+        want = quantize_dit_params(params, act_quant=True)
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        qpipe = load_pipeline(dit_checkpoint=dit_path, vae_checkpoint=vae_dir,
+                              quantize_int8=True, act_quant=True)
+        torch.cuda.synchronize()
+        rec["w8a8_load_s"] = time.perf_counter() - t0
+        rec["w8a8_load_weights_gib"] = (torch.cuda.memory_allocated() - base) / GIB
+        rec["w8a8_load_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / GIB
+        rec["w8a8_leaves_bitwise"] = _flat_equal(qpipe.dit_params, want)
+        x, sigma, cond, ctx = dit_inputs(24)
+        with torch.no_grad():
+            qm.reset_counts()
+            got = dit_forward(qpipe.dit_params, x, sigma, cond, ctx, net)
+            torch.cuda.synchronize()
+            rec["w8a8_forward_launches"] = qm.LAUNCHES["quant_matmul_w8a8"]
+            ref = dit_forward(want, x, sigma, cond, ctx, net)
+        rec["w8a8_forward_bitwise"] = bool(torch.equal(got, ref))
+        check(rec["w8a8_forward_bitwise"], "W8A8 forward from the loaded codes differs")
+        check(rec["w8a8_forward_launches"] == 6 * net.num_blocks,
+              f"W8A8 forward: {rec['w8a8_forward_launches']} kernel-4 launches, "
+              f"expected {6 * net.num_blocks}")
+        del want, got, ref
+        os.remove(dit_path)
+
+        # The port's native format: the W8A8 tree round-trips bit for bit.
+        t0 = time.perf_counter()
+        save_native(native_path, qpipe.dit_params)
+        rec["native_save_s"] = time.perf_counter() - t0
+        rec["native_file_gib"] = os.path.getsize(native_path) / GIB
+        t0 = time.perf_counter()
+        back = restore_native(native_path)
+        torch.cuda.synchronize()
+        rec["native_restore_s"] = time.perf_counter() - t0
+        rec["native_leaves_bitwise"] = _flat_equal(back, qpipe.dit_params)
+        del back, qpipe
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    say("checkpoints " + json.dumps(rec))
+    return pipe, rec
+
+
+def long_video_phase(pipe):
+    """inverse_render of a seeded 57-frame 704x1280 clip (one pass) from the
+    checkpoint-loaded bf16 pipeline, decoded in chunks of 4 latents: the
+    outputs, the first chunk bitwise against an unchunked decode of latents
+    0-3 of the same sample, every attention launch, the phase times, and the
+    decoder's peak chunked and unchunked."""
+    import numpy as np
+    import torch
+    from diffusionrenderer_tpu_torch.api import inverse_render
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.pipeline import decode
+
+    b, t, h, w, c = LONG_VIDEO
+    clip = np.random.default_rng(25).integers(0, 256, LONG_VIDEO, dtype=np.uint8)
+    captured = {}
+    overlapped = pipe._decode_overlapped
+
+    def capture(sample, normal_mask, cfg, chunk, overlap=1):
+        out = overlapped(sample, normal_mask, cfg, chunk, overlap)
+        captured.update(sample=sample, mask=normal_mask, cfg=cfg, u8=out)
+        return out
+
+    pipe.decode_chunk_frames = LONG_VIDEO_CHUNK
+    pipe._decode_overlapped = capture
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        out = inverse_render(pipe, clip, passes=("basecolor",))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        branches = fa.branch_counts("cuda")
+    finally:
+        del pipe._decode_overlapped
+        pipe.decode_chunk_frames = None
+    net = captured["cfg"].net
+    t_lat = captured["sample"].shape[1]
+    chunks = len(range(0, t_lat - 1, LONG_VIDEO_CHUNK - 1))
+    tokens = t_lat * (h // 16) * (w // 16)
+    rec = {"shape": list(LONG_VIDEO), "latent_frames": t_lat, "tokens": tokens,
+           "decode_chunk_frames": LONG_VIDEO_CHUNK, "decode_chunks": chunks, "wall_s": wall,
+           "encode_s": pipe.timings["encode"], "denoise_s": pipe.timings["denoise"],
+           "decode_s": pipe.timings["decode"],
+           "ms_per_dit_step": pipe.timings["denoise"] / pipe.num_steps * 1e3,
+           "render_peak_gib": torch.cuda.max_memory_allocated() / GIB,
+           "launches": launches, "branches": branches}
+    basecolor = out["basecolor"]
+    check(basecolor.shape == (t, h, w, c), f"long video output shape {basecolor.shape}")
+    check(bool(np.isfinite(basecolor).all()) and basecolor.min() >= 0.0
+          and basecolor.max() <= 1.0, "long video output not finite in [0, 1]")
+    expected = pipe.num_steps * net.num_blocks + 1 + chunks
+    rec["expected_launches"] = expected
+    for name in ("flash_attention", "flash_attention_headroom"):
+        check(launches[name] == expected,
+              f"long video {name}: {launches[name]} launches, expected {expected}")
+
+    # The first chunk against one unchunked decode of the same latents, and
+    # the decoder's peak chunked (the whole overlapped decode) and
+    # unchunked (all latents at once).
+    sample, mask, cfg = captured["sample"], captured["mask"], captured["cfg"]
+    with torch.no_grad():
+        first = decode(pipe.vae_params, sample[:, :LONG_VIDEO_CHUNK], mask, cfg=cfg).cpu().numpy()
+        frames = first.shape[1]
+        rec["first_chunk_frames"] = frames
+        rec["first_chunk_bitwise"] = bool(np.array_equal(captured["u8"][:, :frames], first))
+        check(rec["first_chunk_bitwise"], "the first decode chunk differs from the "
+                                          "unchunked decode of its latents")
+        del first
+        for label, run in (("chunked", lambda: pipe._decode_overlapped(
+                                sample, mask, cfg, LONG_VIDEO_CHUNK)),
+                           ("unchunked", lambda: decode(pipe.vae_params, sample, mask,
+                                                        cfg=cfg).cpu().numpy())):
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            u8 = run()
+            torch.cuda.synchronize()
+            rec[f"decode_{label}_s"] = time.perf_counter() - t0
+            rec[f"decode_{label}_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / GIB
+            rec[f"decode_{label}_frames"] = u8.shape[1]
+            del u8
+    say("long_video " + json.dumps(rec))
+    return rec
+
+
+def guidance_phase(pipe, phase7_step_ms: float):
+    """One pass at 512x512, 1 frame, guidance 1.0 (each DiT forward takes
+    the conditional and unconditional rows), first call and 3 warm calls,
+    beside the same call at guidance 0."""
+    import numpy as np
+    import torch
+    from diffusionrenderer_tpu_torch.api import inverse_render
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    image = np.random.default_rng(26).integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)
+    rec = {"phase7_guidance0_5_pass_step_ms": phase7_step_ms}
+    for g in (1.0, 0.0):
+        call = lambda: inverse_render(pipe, image, guidance=g, passes=("basecolor",))  # noqa: E731
+        fa.reset_counts()
+        out = call()
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_attention"]
+        expected = pipe.num_steps * len(pipe.dit_params["blocks"]) + 2
+        check(launches == expected, f"guidance {g}: {launches} attention launches, "
+                                    f"expected {expected}")
+        check(out["basecolor"].shape == (1, 512, 512, 3)
+              and bool(np.isfinite(out["basecolor"]).all()), f"guidance {g}: bad output")
+        rec[f"guidance_{g}"] = {"launches": launches, **warm_calls(call, 3, pipe)}
+    say("guidance " + json.dumps(rec))
+    return rec
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "diffusionrenderer_tpu_torch")):
         print("chip_smoke.py runs from the root of a checkout: the package "
@@ -2078,7 +2373,23 @@ def main() -> int:
     for rec in records[:2]:
         rec["launches_by_branch_forward_render"] = fwd["first"]["branches"]
     records += wide_int8_records(wide)
-    say(f"  phase 23: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
+    say(f"  phase 23: {time.perf_counter() - t:.1f} s")
+    t = phase("24 checkpoints: full-width DiT and VAE files through load_pipeline")
+    pipe, ckpt = checkpoint_phase()
+    say(f"  phase 24: {time.perf_counter() - t:.1f} s")
+    t = phase("25 long video: 57 x 704 x 1280 inverse_render, decode in chunks of 4 latents")
+    long_video = long_video_phase(pipe)
+    say(f"  phase 25: {time.perf_counter() - t:.1f} s")
+    t = phase("26 guidance 1.0 at 512 x 512")
+    guidance_phase(pipe, main_rec["warm"]["median_step_ms"])
+    del pipe
+    torch.cuda.empty_cache()
+    for rec in records[:3]:
+        rec["launches_long_video"] = long_video["launches"][
+            "flash_attention_headroom" if rec["name"] == "flash_attention_headroom"
+            else "flash_attention"]
+    records[3]["launches_checkpoint_w8a8_forward"] = ckpt["w8a8_forward_launches"]
+    say(f"  phase 26: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
     say(card)  # again here: the end of a long log is what survives
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -26,7 +26,7 @@ from .envmap import latlong_vec, render_projection_from_panorama, tonemap_image_
 from .io import load_hdr_image
 from .models.dit import init_dit_params
 from .models.quant import quantize_block
-from .models.vae import init_vae_params
+from .models.vae import init_vae_params, load_latent_stats
 from .pipeline import DiffusionRendererPipeline
 from .utils.device import DeviceLike, resolve_device
 from .utils.hostops import to_float32, to_signed_range, u8_to_unit_float
@@ -44,6 +44,7 @@ def load_pipeline(
     seed: int = 42,
     dtype: torch.dtype = torch.bfloat16,
     compute_dtype: Optional[str] = None,
+    vae_config_json: Optional[str] = None,
     net_config: Optional[DiTConfig] = None,
     vae_config: Optional[VAEConfig] = None,
     device: DeviceLike = None,
@@ -54,38 +55,77 @@ def load_pipeline(
     quant_mse_clip: bool = False,
     quant_hadamard: bool = False,
 ) -> DiffusionRendererPipeline:
-    """Build a pipeline with random weights at the model_type's architecture
-    (the full FADITV2_7B DiT and CV8x8x8 VAE unless configs are given),
-    drawn from fixed seeds directly on `device` (CUDA by default).
+    """Build a pipeline at the model_type's architecture (the full
+    FADITV2_7B DiT and CV8x8x8 VAE unless configs are given), with its
+    weights placed straight on `device` (CUDA by default).
 
-    quantize_int8 quantizes the DiT's block matmuls to int8 on the device as
-    they are drawn (models/quant.quantize_block: the same weights as the
-    unquantized pipeline of the same seed): act_quant for W8A8 (the int8
-    matmul kernel), quant_group_size for per-group scales, quant_keep_bf16
-    for matmuls left unquantized ('wo', 'mlp.w2', ...), quant_mse_clip and
-    quant_hadamard for the calibration-free quantizers."""
-    if dit_checkpoint is not None or vae_checkpoint is not None:
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet (ROADMAP.md queue 1, "
-            "'DiT and VAE checkpoint I/O'); call load_pipeline() without "
-            "checkpoints for random weights")
+    dit_checkpoint: a reference `.pt` / `.safetensors` state dict, converted
+    and streamed to the device tensor by tensor, or a native file
+    (checkpoint.save_native), restored as saved.  vae_checkpoint: a
+    diffusers directory or safetensors file, or a native file.
+    vae_config_json: a diffusers config.json whose latents_mean / std
+    replace the checkpoint's.  Without checkpoints the weights are random,
+    drawn from fixed seeds on the device.
+
+    quantize_int8 quantizes the DiT's block matmuls to int8 on the device,
+    block by block as they are loaded or drawn (models/quant.quantize_block:
+    a random pipeline keeps the weights of the unquantized one of the same
+    seed): act_quant for W8A8 (the int8 matmul kernel), quant_group_size
+    for per-group scales, quant_keep_bf16 for matmuls left unquantized
+    ('wo', 'mlp.w2', ...), quant_mse_clip and quant_hadamard for the
+    calibration-free quantizers.  A native checkpoint ignores them."""
+    from .checkpoint import is_native_checkpoint, load_dit_checkpoint
+    from .checkpoint_vae import load_vae_checkpoint, refuse_identity_stats
+
     dev = resolve_device(device)
+    if dit_checkpoint is not None and is_native_checkpoint(dit_checkpoint):
+        # A convert_meta.json beside a native checkpoint names the model
+        # type it was converted for: fail fast on a mismatch rather than
+        # with an opaque shape error at generate time.
+        meta_path = os.path.join(os.path.dirname(os.path.abspath(dit_checkpoint)),
+                                 "convert_meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            if meta.get("model_type") and meta["model_type"] != model_type:
+                raise ValueError(
+                    f"native checkpoint {dit_checkpoint} was converted for "
+                    f"model_type={meta['model_type']!r} but load_pipeline "
+                    f"was called with model_type={model_type!r}")
     if net_config is not None:
         net_cfg = net_config
     elif model_type == "inverse":
         net_cfg = DiTConfig(additional_concat_ch=16, use_context_embedding=True)
     else:
         net_cfg = DiTConfig(additional_concat_ch=17 * 8, use_context_embedding=False)
+    quant_kw = dict(act_quant=act_quant, group_size=quant_group_size,
+                    keep_bf16=tuple(quant_keep_bf16), mse_clip=quant_mse_clip,
+                    hadamard=quant_hadamard)
+    if dit_checkpoint is not None:
+        dit_params = load_dit_checkpoint(dit_checkpoint, net_cfg, dtype,
+                                         quantize_int8=quantize_int8, device=dev, **quant_kw)
+    else:
+        block_fn = functools.partial(quantize_block, **quant_kw) if quantize_int8 else None
+        dit_params = init_dit_params(net_cfg, device=dev, dtype=dtype, seed=0,
+                                     block_fn=block_fn)
+
     vae_cfg = vae_config if vae_config is not None else VAEConfig()
-    block_fn = None
-    if quantize_int8:
-        block_fn = functools.partial(
-            quantize_block, act_quant=act_quant, group_size=quant_group_size,
-            keep_bf16=tuple(quant_keep_bf16), mse_clip=quant_mse_clip,
-            hadamard=quant_hadamard)
+    if vae_checkpoint is not None:
+        vae_params = load_vae_checkpoint(vae_checkpoint, vae_cfg, dtype, device=dev)
+    else:
+        vae_params = init_vae_params(vae_cfg, device=dev, dtype=dtype, seed=1)
+    if vae_config_json is not None:
+        with open(vae_config_json) as f:
+            vc = json.load(f)
+        vae_params = load_latent_stats(vae_params, vc["latents_mean"], vc["latents_std"],
+                                       vae_cfg)
+    if vae_checkpoint is not None:
+        # Diffusers loads fall back to the bundled table; only a native file
+        # saved with identity statistics gets here with them.
+        refuse_identity_stats(vae_params, vae_cfg, vae_checkpoint)
     return DiffusionRendererPipeline(
-        init_dit_params(net_cfg, device=dev, dtype=dtype, seed=0, block_fn=block_fn),
-        init_vae_params(vae_cfg, device=dev, dtype=dtype, seed=1),
+        dit_params,
+        vae_params,
         model_type=model_type,
         guidance=guidance,
         num_steps=num_steps,

@@ -6,7 +6,10 @@ per-level scale by `dwt_rescale`), factorized spatial (1,3,3) + causal
 temporal (3,1,1) convolutions, per-frame GroupNorm(1), hybrid stride-2
 down- and upsampling, a mid block of resnet - spatial attention - causal
 temporal attention - resnet, and per-(channel, latent-frame) latent
-statistics.
+statistics (`load_latent_stats` installs the published table).
+`vae_encode_chunked` / `vae_decode_chunked` micro-batch the batch axis and
+`vae_encode_temporal_chunks` / `vae_decode_temporal_chunks` cut a long
+clip into causal chunks, as the JAX package does.
 
 The public functions keep the JAX package's channels-last (B, T, H, W, C)
 layout (or channels-first on request); inside, the network runs
@@ -20,6 +23,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -312,6 +316,20 @@ def init_vae_params(cfg: VAEConfig, *, device, dtype: torch.dtype = torch.bfloat
     }
 
 
+def load_latent_stats(params: Params, latents_mean, latents_std,
+                      cfg: VAEConfig) -> Params:
+    """A new parameter dict with the flat (C * F) latents_mean / latents_std
+    vectors of the diffusers config installed, reshaped channel-major to
+    (C, F) fp32 on the device of the parameters' current statistics."""
+    device = params["latents_mean"].device if "latents_mean" in params else "cpu"
+    shape = (cfg.latent_channels, cfg.max_latent_frames)
+    out = dict(params)
+    for key, vec in (("latents_mean", latents_mean), ("latents_std", latents_std)):
+        arr = np.asarray(vec.cpu() if isinstance(vec, torch.Tensor) else vec, np.float32)
+        out[key] = torch.from_numpy(arr.reshape(shape).copy()).to(device)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
@@ -376,3 +394,53 @@ def vae_decode(params: Params, z: torch.Tensor, cfg: VAEConfig,
     h = _conv_proj(h, dec["conv_out"])
     video = haar_unpatch(h, levels, cfg.pixel_num_frames(t_lat), rescale=cfg.dwt_rescale)
     return video if out_layout == "NCDHW" else video.permute(0, 2, 3, 4, 1)
+
+
+def vae_encode_chunked(params: Params, x: torch.Tensor, cfg: VAEConfig,
+                       max_batch: int = 8) -> torch.Tensor:
+    """vae_encode of (B, T, H, W, 3) in micro-batches of at most max_batch
+    rows, to bound peak memory (the reference's max_enc_batch_size)."""
+    if x.shape[0] <= max_batch:
+        return vae_encode(params, x, cfg)
+    return torch.cat([vae_encode(params, x[i:i + max_batch], cfg)
+                      for i in range(0, x.shape[0], max_batch)], dim=0)
+
+
+def vae_decode_chunked(params: Params, z: torch.Tensor, cfg: VAEConfig,
+                       max_batch: int = 4) -> torch.Tensor:
+    """vae_decode in micro-batches of at most max_batch rows (the
+    reference's max_dec_batch_size)."""
+    if z.shape[0] <= max_batch:
+        return vae_decode(params, z, cfg)
+    return torch.cat([vae_decode(params, z[i:i + max_batch], cfg)
+                      for i in range(0, z.shape[0], max_batch)], dim=0)
+
+
+def vae_encode_temporal_chunks(params: Params, x: torch.Tensor, cfg: VAEConfig,
+                               pixel_chunk_duration: int,
+                               max_batch: int = 8) -> torch.Tensor:
+    """Long-clip encode: (B, n*t, H, W, C) -> (B*n, t, H, W, C) chunks, each
+    encoded causally from its own first frame, micro-batched, and joined on
+    the latent time axis."""
+    b, t, h, w, c = x.shape
+    if t % pixel_chunk_duration != 0:
+        raise ValueError(
+            f"T={t} not divisible by pixel_chunk_duration={pixel_chunk_duration}")
+    n = t // pixel_chunk_duration
+    z = vae_encode_chunked(params, x.reshape(b * n, pixel_chunk_duration, h, w, c), cfg,
+                           max_batch=max_batch)
+    s = cfg.spatial_compression_ratio
+    return z.reshape(b, n * z.shape[1], h // s, w // s, cfg.latent_channels)
+
+
+def vae_decode_temporal_chunks(params: Params, z: torch.Tensor, cfg: VAEConfig,
+                               latent_chunk_duration: int,
+                               max_batch: int = 4) -> torch.Tensor:
+    """Inverse of vae_encode_temporal_chunks."""
+    b, t, h, w, c = z.shape
+    if t % latent_chunk_duration != 0:
+        raise ValueError(f"latent T={t} not divisible by {latent_chunk_duration}")
+    n = t // latent_chunk_duration
+    y = vae_decode_chunked(params, z.reshape(b * n, latent_chunk_duration, h, w, c), cfg,
+                           max_batch=max_batch)
+    return y.reshape(b, n * y.shape[1], *y.shape[2:])

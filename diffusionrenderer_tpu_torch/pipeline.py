@@ -10,7 +10,9 @@ Counterpart of diffusionrenderer_tpu/pipeline.py along the path that
 2. the EDM Euler loop runs the DiT, with classifier-free guidance on the
    batch axis (`make_denoise_fn`, `sample`);
 3. the result is VAE-decoded, the normal pass renormalized and blended,
-   and the video mapped to uint8 (`decode`).
+   and the video mapped to uint8 (`decode`); with `decode_chunk_frames`
+   set, in overlapping latent-time chunks (`_decode_overlapped`), which
+   bounds the decoder's peak memory on long clips.
 
 Video tensors are channels-last (B, T, H, W, C) at the public functions;
 pixel conditions travel channels-first into the VAE.  The random initial
@@ -33,7 +35,7 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Un
 import numpy as np
 import torch
 
-from .config import RendererConfig, get_config_by_model_type, validate_config
+from .config import RendererConfig, VAEConfig, get_config_by_model_type, validate_config
 from .models.dit import dit_forward
 from .models.vae import vae_decode, vae_encode
 from .parallel.sharding import batch_rows_split, batch_slice, gather_batch
@@ -192,7 +194,8 @@ class DiffusionRendererPipeline:
     of the last generation's phases (encode, denoise, decode), each closed
     by a device synchronize.  After shard(mesh), `mesh` is this rank's
     parallel.sharding.Mesh and `sp_attn` the DiT's attention backend under
-    it."""
+    it.  decode_chunk_frames, when set below the clip's latent frame count,
+    decodes it in chunks of that many latent frames (_decode_overlapped)."""
 
     def __init__(
         self,
@@ -223,6 +226,10 @@ class DiffusionRendererPipeline:
         self.timings: Dict[str, float] = {}
         self.mesh = None
         self.sp_attn = "auto"
+        # Latent frames per decode chunk (None: one decode).  Each chunk
+        # restarts the decoder's causal state one latent early, the
+        # reference's own long-video behaviour.
+        self.decode_chunk_frames: Optional[int] = None
 
     def shard(self, mesh, sp_attn: Optional[str] = None) -> "DiffusionRendererPipeline":
         """Run generations over a (data, seq) mesh (parallel.sharding.make_mesh;
@@ -275,6 +282,76 @@ class DiffusionRendererPipeline:
                 f"{self.model_type!r} needs {cfg.net.patch_dim}. Load the "
                 f"matching checkpoint (inverse=132, forward=612).")
         return cfg
+
+    def _vae_cfg(self, cfg: Optional[RendererConfig]) -> VAEConfig:
+        if cfg is not None:
+            return cfg.vae
+        return self.vae_config if self.vae_config is not None else VAEConfig()
+
+    def encode(self, x: torch.Tensor, cfg: Optional[RendererConfig] = None) -> torch.Tensor:
+        """VAE encode with the EDM scaling vae.encode(x) * sigma_data;
+        x: (B, T, H, W, 3) in [-1, 1]."""
+        sd = cfg.sigma_data if cfg is not None else 0.5
+        return vae_encode(self.vae_params, x, self._vae_cfg(cfg)) * sd
+
+    def decode(self, z: torch.Tensor, cfg: Optional[RendererConfig] = None) -> torch.Tensor:
+        """VAE decode with the EDM scaling vae.decode(z / sigma_data)."""
+        sd = cfg.sigma_data if cfg is not None else 0.5
+        return vae_decode(self.vae_params, z / sd, self._vae_cfg(cfg))
+
+    def reset_dtype(self, dtype: torch.dtype) -> None:
+        """Cast the weights to `dtype`, with the JAX package's rule on its
+        stacked tree: int8 leaves, the quantization scales ('s', 'sa') and
+        1-D leaves stay as they are.  A per-block leaf of the port counts
+        the JAX package's stacked block axis, so a block's (D,) norm weight
+        is cast as JAX's (nb, D) one is."""
+        def cast(tree, path=(), ndim_extra=0):
+            if isinstance(tree, dict):
+                return {k: cast(v, path + (k,), ndim_extra) for k, v in tree.items()}
+            if isinstance(tree, list):
+                extra = 1 if path and path[-1] == "blocks" else 0
+                return [cast(v, path, ndim_extra + extra) for v in tree]
+            if any(k in ("s", "sa") for k in path) or tree.dtype == torch.int8:
+                return tree
+            return tree.to(dtype) if tree.dim() + ndim_extra > 1 else tree
+
+        self.dit_params = cast(self.dit_params)
+        self.vae_params = cast(self.vae_params)
+
+    def _decode_overlapped(self, sample: torch.Tensor, normal_mask: torch.Tensor,
+                           cfg: RendererConfig, chunk: int, overlap: int = 1) -> np.ndarray:
+        """Decode latent-time chunks of `chunk` latents, each after the first
+        starting `overlap` latents early (causal context) and keeping only
+        its frames past the overlap; uint8 (B, (T_lat-1)*8+1, H, W, C) on
+        the host.  The first chunk's frames are exactly the unchunked
+        decode's.  Batch rows decode one at a time (the decoder's peak grows
+        with them too).  Every chunk is queued before the first is fetched,
+        so each fetch overlaps the next chunk's decode."""
+        if sample.shape[0] > 1:
+            return np.concatenate([
+                self._decode_overlapped(sample[i:i + 1], normal_mask[i:i + 1], cfg, chunk,
+                                        overlap)
+                for i in range(sample.shape[0])], axis=0)
+        t_lat = sample.shape[1]
+        step = chunk - overlap
+        if step < 1:
+            raise ValueError(f"decode chunk {chunk} must exceed the overlap {overlap}")
+        queued = []
+        start = 0
+        while start < t_lat:
+            length = min(chunk, t_lat - start)
+            if start > 0 and length <= overlap:
+                break  # fully covered by the previous chunk
+            queued.append((start, length,
+                           decode(self.vae_params, sample[:, start:start + length],
+                                  normal_mask, cfg=cfg)))
+            start += step
+        pieces = []
+        for start, length, video in queued:
+            keep = (video.shape[1] if start == 0
+                    else cfg.vae.temporal_compression_ratio * (length - overlap))
+            pieces.append(video[:, -keep:].cpu().numpy())
+        return np.concatenate(pieces, axis=1)
 
     @contextlib.contextmanager
     def _phase(self, name: str):
@@ -373,8 +450,15 @@ class DiffusionRendererPipeline:
                        attn_backend="auto" if mesh is None else self.sp_attn, mesh=mesh)
             del latent_condition
         with self._phase("decode"):
-            video = decode(self.vae_params, x, rows(normal_mask), cfg=cfg)
-            if split:
-                video = gather_batch(video, mesh, b)
-            video_u8 = video.cpu().numpy()
+            ck = self.decode_chunk_frames
+            if ck and x.shape[1] > ck:
+                video_u8 = self._decode_overlapped(x, rows(normal_mask), cfg, ck)
+                if split:
+                    video_u8 = gather_batch(torch.from_numpy(video_u8).to(self.device),
+                                            mesh, b).cpu().numpy()
+            else:
+                video = decode(self.vae_params, x, rows(normal_mask), cfg=cfg)
+                if split:
+                    video = gather_batch(video, mesh, b)
+                video_u8 = video.cpu().numpy()
         return video_u8

@@ -547,3 +547,67 @@ def test_forward_render_tiny_on_card(cuda):
         assert tfa.LAUNCHES["flash_attention"] == 3 * net.num_blocks
         assert out.shape == (frames, 256, 256, 3)
         assert np.isfinite(out).all() and 0.0 <= out.min() and out.max() <= 1.0
+
+
+def test_safetensors_reader_straight_to_the_card(cuda, tmp_path):
+    """SafetensorsFile(device='cuda') copies each tensor from the mapped
+    file onto the card; the writer takes card tensors."""
+    from diffusionrenderer_tpu_torch.utils.safetensors import SafetensorsFile, write_safetensors
+
+    g = torch.Generator(cuda).manual_seed(0)
+    want = {"w": torch.randn(64, 32, generator=g, device=cuda).bfloat16(),
+            "s": torch.rand(32, generator=g, device=cuda),
+            "q": torch.randint(-127, 128, (16, 8), generator=g, device=cuda).to(torch.int8)}
+    path = str(tmp_path / "t.safetensors")
+    write_safetensors(path, want)
+    with SafetensorsFile(path, cuda) as f:
+        for k, v in want.items():
+            assert f[k].is_cuda and f[k].dtype == v.dtype and torch.equal(f[k], v), k
+
+
+def test_tiny_checkpoint_loads_on_the_card_as_on_the_cpu(cuda, tmp_path):
+    """A reference-format DiT file and a native VAE file through
+    load_pipeline(device='cuda') give the CPU load's parameters bit for
+    bit; quantized on load (W8A8, g64), the card's quantize_dit_params of
+    the loaded weights (the quantizer's division runs on the device that
+    holds the weights, so the card's and the CPU's codes may differ by one
+    step at a tie)."""
+    import json
+
+    from diffusionrenderer_tpu_torch import load_pipeline
+    from diffusionrenderer_tpu_torch.checkpoint import _flatten, export_dit_state_dict
+    from diffusionrenderer_tpu_torch.checkpoint_vae import save_vae_native
+    from diffusionrenderer_tpu_torch.config import VAEConfig
+    from diffusionrenderer_tpu_torch.models.vae import init_vae_params
+    from diffusionrenderer_tpu_torch.utils.safetensors import write_safetensors
+
+    net = DiTConfig(model_channels=256, num_blocks=2, num_heads=2, additional_concat_ch=16,
+                    adaln_lora_dim=8, crossattn_emb_channels=16, use_context_embedding=True)
+    vae = VAEConfig(encoder_block_out_channels=(8, 12, 16, 16),
+                    decode_block_out_channels=(12, 16, 16, 16), num_layers=1)
+    dit = str(tmp_path / "dit.safetensors")
+    write_safetensors(dit, export_dit_state_dict(
+        init_dit_params(net, device="cpu", dtype=torch.bfloat16, seed=3), net))
+    vae_file = str(tmp_path / "vae.safetensors")
+    save_vae_native(vae_file, init_vae_params(vae, device="cpu", dtype=torch.float32, seed=4))
+    stats = str(tmp_path / "config.json")
+    with open(stats, "w") as f:
+        json.dump({"latents_mean": [0.1] * 256, "latents_std": [0.9] * 256}, f)
+    kw = dict(dit_checkpoint=dit, vae_checkpoint=vae_file, vae_config_json=stats,
+              net_config=net, vae_config=vae)
+
+    def assert_same(got, want, device):
+        a, b = _flatten(got), _flatten(want)
+        assert sorted(a) == sorted(b)
+        for k, v in a.items():
+            assert v.device.type == device and v.dtype == b[k].dtype, k
+            assert torch.equal(v.cpu(), b[k].cpu()), k
+
+    on_card = load_pipeline(**kw, device=cuda)
+    on_cpu = load_pipeline(**kw, device="cpu")
+    for tree in ("dit_params", "vae_params"):
+        assert_same(getattr(on_card, tree), getattr(on_cpu, tree), "cuda")
+    quant = dict(act_quant=True, group_size=64)
+    q_card = load_pipeline(**kw, device=cuda, quantize_int8=True, act_quant=True,
+                           quant_group_size=64)
+    assert_same(q_card.dit_params, quantize_dit_params(on_card.dit_params, **quant), "cuda")

@@ -156,5 +156,5 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(weights):
         dit_params_from_numpy(jax.device_get(jd), NET)
     with pytest.raises(RuntimeError, match="CUDA"):
         vae_params_from_numpy(jax.device_get(jv), TINY)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(FileNotFoundError):
         load_pipeline(dit_checkpoint="model.pt", device="cpu")
