@@ -137,6 +137,30 @@ Phases (any failure raises and exits non-zero):
                per DiT step, and the decoder's peak chunked and unchunked.
   26. guidance - one pass at 512x512, 1 frame, guidance 1.0 and 0.0, first
                call and 3 warm calls each (median ms per DiT step).
+  27. the CLI - `python -m diffusionrenderer_tpu_torch.cli` in subprocesses
+               on the card at full width (no --cpu, no --tiny): info;
+               inverse --passes basecolor,normal of a seeded 512x512 PNG
+               written by the port's codec, from phase 24's reference
+               files (15 steps); forward of seeded PNG G-buffers under
+               phase 20's .hdr; envmap.  Each subprocess's wall time, its
+               generate/* registry times and kernel launches (422 / 429 /
+               0); the PNGs read back through the port's codec.
+  28. the ComfyUI nodes - LoadDiffusionRendererModel from phase 24's
+               files in bf16 and in its default w8a8 (2,520 kernel-4
+               launches), Cosmos1InverseRenderer on a CPU float IMAGE
+               tensor, bitwise api.inverse_render on the same pipeline and
+               seed; LoadHDRImage of phase 20's panorama into
+               Cosmos1ForwardRenderer on a forward pipeline.  Phase 24's
+               files are removed after this phase.
+  29. the server - ServingExecutor(max_batch=5) over a bf16 inverse
+               pipeline: five requests (context_index 0-4, seeds 0-4) from
+               five threads as one dispatch of 5 rows (the registry's
+               serving/dispatch count), each row bitwise a direct 5-row
+               generate and within 30 dB PSNR of its solo generate; the
+               latency (submit -> result), the dispatch beside the direct
+               generate, 422 attention launches; then a trickle of 512x512
+               and 256x256 requests and shutdown(drain=True) with requests
+               pending, every future resolved.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -1984,8 +2008,8 @@ def forward_reference_phase(pipe):
 # Real checkpoints, long video and guidance
 # ---------------------------------------------------------------------------
 
-# Phase 24's checkpoints go here (build/ is not committed); the phase
-# removes them.
+# Phase 24's checkpoints go here (build/ is not committed); main() removes
+# them after phase 28, the last to read them.
 CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
 # The long-video job: 57 frames at 704 x 1280, 8 latent frames, decoded in
 # chunks of 4 latents (3 chunks: 25 + 24 + 8 frames).
@@ -2013,7 +2037,9 @@ def checkpoint_phase():
     file and the CV8x8x8 VAE as a diffusers directory, load both through
     load_pipeline (bf16, then quantized on load), hold every parameter
     bitwise against the in-memory weights, and round-trip the W8A8 tree
-    through the native format.  Returns the bf16 pipeline and the record."""
+    through the native format.  Returns the bf16 pipeline and the record,
+    whose dit_path and vae_dir name the reference files (left on disk for
+    the surface phases)."""
     import shutil
 
     import torch
@@ -2037,7 +2063,9 @@ def checkpoint_phase():
                         timeout=60).stdout.strip()
     say("  " + df.replace("\n", "\n  "))
     free = shutil.disk_usage(CKPT_DIR).free
-    need = dit_param_count(net) * 2 + GIB  # the bf16 file, the VAE and a margin
+    # The bf16 file, the W8A8 native file beside it (about 1 byte a
+    # parameter), the VAE and a margin.
+    need = dit_param_count(net) * 3 + GIB
     rec = {"disk_free_gib": free / GIB, "dit_file_need_gib": need / GIB,
            "blocks": net.num_blocks}
     check(free >= need, f"the disk holds {free / GIB:.1f} GiB, the checkpoint needs "
@@ -2118,7 +2146,6 @@ def checkpoint_phase():
               f"W8A8 forward: {rec['w8a8_forward_launches']} kernel-4 launches, "
               f"expected {6 * net.num_blocks}")
         del want, got, ref
-        os.remove(dit_path)
 
         # The port's native format: the W8A8 tree round-trips bit for bit.
         t0 = time.perf_counter()
@@ -2131,10 +2158,14 @@ def checkpoint_phase():
         rec["native_restore_s"] = time.perf_counter() - t0
         rec["native_leaves_bitwise"] = _flat_equal(back, qpipe.dit_params)
         del back, qpipe
+        os.remove(native_path)
         torch.cuda.empty_cache()
-    finally:
+    except BaseException:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        raise
     say("checkpoints " + json.dumps(rec))
+    # The reference files stay for phases 27 and 28; main() removes them.
+    rec["dit_path"], rec["vae_dir"] = dit_path, vae_dir
     return pipe, rec
 
 
@@ -2251,6 +2282,332 @@ def guidance_phase(pipe, phase7_step_ms: float):
               and bool(np.isfinite(out["basecolor"]).all()), f"guidance {g}: bad output")
         rec[f"guidance_{g}"] = {"launches": launches, **warm_calls(call, 3, pipe)}
     say("guidance " + json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# The user surfaces: the CLI, the ComfyUI nodes, the batching server
+# ---------------------------------------------------------------------------
+
+SURFACE_DIR = os.path.join(ROOT, "build", "chip_smoke", "surfaces")
+GBUFFER_NAMES = ("depth", "normal", "roughness", "metallic", "basecolor")
+# Runs the CLI's main() in a subprocess, then prints the metrics registry
+# and the kernels' launch counts of that process on its last line.
+CLI_RUN = (
+    "import json, sys\n"
+    "from diffusionrenderer_tpu_torch.cli import main\n"
+    "from diffusionrenderer_tpu_torch.ops import flash_attention as fa, quant_matmul as qm\n"
+    "from diffusionrenderer_tpu_torch.utils.profiling import metrics\n"
+    "main(sys.argv[1:])\n"
+    "print('surface_cli ' + json.dumps({'registry': metrics.summary(),\n"
+    "                                   'launches': {**fa.LAUNCHES, **qm.LAUNCHES}}))\n"
+)
+# A batched row of the server against the same request generated alone, at
+# uint8: 5 rows may take other cuBLAS algorithms than 1, so the floor is a
+# PSNR, not equality (bf16 renders of one model by two implementations
+# land near 39.5 dB).
+SERVER_PSNR_DB = 30.0
+
+
+def _cli(label: str, args, timeout: int = 600):
+    """One CLI subprocess from the checkout's root (where the kernels built
+    by phase 2 are found); its wall time, and the last line's record when
+    it prints one."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"CLI {label} exited {res.returncode}:\n{res.stderr[-6000:]}")
+    last = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
+    rec = {"wall_s": wall}
+    if last.startswith("surface_cli "):
+        rec.update(json.loads(last[len("surface_cli "):]))
+    return rec, res.stdout
+
+
+def _png_check(path: str, shape, want=None) -> None:
+    """A PNG the CLI wrote: its shape and dtype, and either its pixels
+    equal to `want` (a uint8 array) or, without one, not all one value."""
+    import numpy as np
+    from diffusionrenderer_tpu_torch import io as tio
+
+    img = tio.read_png(path)
+    check(img.shape == shape and img.dtype == np.uint8, f"{path}: {img.shape} {img.dtype}")
+    if want is None:
+        check(int(img.max()) > int(img.min()), f"{path}: a constant image")
+    else:
+        check(np.array_equal(img, want), f"{path}: differs from the in-process result")
+
+
+def cli_phase(env_path: str, ckpt):
+    """The CLI at full width, each command in its own process on the card
+    (no --cpu, no --tiny): info; inverse of a seeded 512x512 PNG (two
+    passes, 15 steps) from phase 24's reference files; forward of seeded
+    PNG G-buffers under phase 20's .hdr; envmap of that panorama.  The
+    outputs read back through the port's codec."""
+    import shutil
+
+    import numpy as np
+    from diffusionrenderer_tpu_torch import io as tio
+    from diffusionrenderer_tpu_torch.config import PRESET_NAMES, get_preset_config
+    from diffusionrenderer_tpu_torch.models.dit import dit_param_count
+
+    shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+    os.makedirs(SURFACE_DIR)
+    rng = np.random.default_rng(27)
+    pngs = {}
+    for name in ("rgb", *GBUFFER_NAMES):
+        pngs[name] = os.path.join(SURFACE_DIR, f"{name}.png")
+        tio.write_png(pngs[name], rng.integers(0, 256, (FWD_RES, FWD_RES, 3), dtype=np.uint8))
+    rec = {}
+    info_rec, out = _cli("info", ["-m", "diffusionrenderer_tpu_torch.cli", "info"])
+    info = json.loads(out)
+    rec["info"] = {"wall_s": info_rec["wall_s"], "backend": info["backend"],
+                   "devices": info["devices"]}
+    import torch
+
+    check(info["backend"] == "cuda" and info["devices"] == torch.cuda.device_count(),
+          f"CLI info: {rec['info']}")
+    check(sorted(info["presets"]) == sorted(PRESET_NAMES) and all(
+        info["presets"][n]["params_b"] == round(dit_param_count(get_preset_config(n).net) / 1e9, 3)
+        for n in PRESET_NAMES), "CLI info: presets")
+
+    inv_dir = os.path.join(SURFACE_DIR, "inverse")
+    relit = os.path.join(SURFACE_DIR, "relit.png")
+    env_prefix = os.path.join(SURFACE_DIR, "env")
+    gbuf_args = [a for g in GBUFFER_NAMES for a in (f"--{g}", pngs[g])]
+    # One attention call per DiT block per step, plus the VAE's encode(s)
+    # and decode (the 2 inverse passes share one encode and one decode; the
+    # forward render encodes 8 conditions).
+    blocks, steps = 28, 15
+    runs = {
+        "inverse": (["-c", CLI_RUN, "inverse", "--passes", "basecolor,normal",
+                     "--checkpoint", ckpt["dit_path"], "--vae", ckpt["vae_dir"],
+                     "--input", pngs["rgb"], "--output-dir", inv_dir], steps * blocks + 2),
+        "forward": (["-c", CLI_RUN, "forward", *gbuf_args, "--env", env_path,
+                     "--output", relit], steps * blocks + 9),
+        "envmap": (["-c", CLI_RUN, "envmap", "--input", env_path, "--height", str(FWD_RES),
+                    "--width", str(FWD_RES), "--output-prefix", env_prefix], 0),
+    }
+    for label, (args, expected) in runs.items():
+        r, _ = _cli(label, args)
+        launches = r["launches"]
+        for name in ("flash_attention", "flash_attention_headroom"):
+            check(launches[name] == expected,
+                  f"CLI {label}: {name} {launches[name]} launches, expected {expected}")
+        check(launches["quant_matmul_w8a8"] == 0, f"CLI {label}: W8A8 launches")
+        rec[label] = {"wall_s": r["wall_s"], "launches": launches, "expected_launches": expected,
+                      "registry": {k: v for k, v in r["registry"].items()
+                                   if k.startswith(("generate/", "api/"))}}
+    for name in ("basecolor", "normal"):
+        _png_check(os.path.join(inv_dir, f"{name}.png"), (FWD_RES, FWD_RES, 3))
+    check(sorted(os.listdir(inv_dir)) == ["basecolor.png", "normal.png"], "CLI inverse outputs")
+    _png_check(relit, (FWD_RES, FWD_RES, 3))
+    # The envmap PNGs against the same projection in this process: env_ldr
+    # saturates wherever the panorama exceeds 1/15 (Reinhard scaled by 16,
+    # as in the reference), so it may well be one value throughout.
+    from diffusionrenderer_tpu_torch.envmap import render_projection_from_panorama
+
+    env = render_projection_from_panorama(tio.load_image(env_path), resolution=(FWD_RES, FWD_RES),
+                                          env_flip=False, env_rot=180.0, use_cache=False,
+                                          device="cuda")  # the CLI's defaults
+    for name in ("env_ldr", "env_log"):
+        want = (np.clip(env[name][0].cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+        _png_check(f"{env_prefix}_{name}.png", (FWD_RES, FWD_RES, 3), want)
+    say("surface_cli " + json.dumps(rec))
+    return rec
+
+
+def _unit_tensor(rng, shape):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(rng.uniform(size=shape).astype(np.float32))
+
+
+def nodes_phase(env_path: str, ckpt):
+    """The four ComfyUI nodes at full width: the loader from phase 24's
+    reference files in bf16 and in its default w8a8 (kernel 4 on every
+    block matmul), the inverse renderer on a CPU float IMAGE tensor, bitwise
+    api.inverse_render on the same pipeline and seed; LoadHDRImage of phase
+    20's panorama into the forward renderer on a forward pipeline."""
+    import numpy as np
+    import torch
+    from diffusionrenderer_tpu_torch import api
+    from diffusionrenderer_tpu_torch import comfy_nodes as cn
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.ops import quant_matmul as qm
+
+    rng = np.random.default_rng(28)
+    image = _unit_tensor(rng, (1, FWD_RES, FWD_RES, 3))
+    blocks, steps = 28, 15
+    rec = {}
+    for mode in ("bf16", "w8a8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (pipe,) = cn.LoadDiffusionRendererModel().load_pipeline(
+            model=ckpt["dit_path"], quant_mode=mode, vae_path=ckpt["vae_dir"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        fa.reset_counts()
+        qm.reset_counts()
+        t0 = time.perf_counter()
+        outs = cn.Cosmos1InverseRenderer().run_inverse_pass(pipe, image, guidance=0.0, seed=28)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**fa.LAUNCHES, **qm.LAUNCHES}
+        ref = api.inverse_render(pipe, image.numpy(), guidance=0.0, seed=28)
+        bitwise = all(np.array_equal(t.numpy(), ref["basecolor" if n == "base_color" else n])
+                      for n, t in zip(cn.Cosmos1InverseRenderer.RETURN_NAMES, outs))
+        expected = steps * blocks + 2
+        expected_qmm = 6 * blocks * steps if mode == "w8a8" else 0
+        rec[f"inverse_{mode}"] = {"load_s": load_s, "wall_s": wall, "launches": launches,
+                                  "expected_launches": expected,
+                                  "expected_w8a8_launches": expected_qmm,
+                                  "bitwise_api": bitwise}
+        check(len(outs) == 5, f"inverse node {mode}: {len(outs)} outputs")
+        for t in outs:
+            v = t.numpy()
+            check(t.shape == (1, FWD_RES, FWD_RES, 3) and t.dtype == torch.float32,
+                  f"inverse node {mode}: {tuple(t.shape)} {t.dtype}")
+            check(bool(np.isfinite(v).all()) and v.min() >= 0.0 and v.max() <= 1.0,
+                  f"inverse node {mode}: values not finite in [0, 1]")
+        check(bitwise, f"inverse node {mode}: differs from api.inverse_render")
+        for name in ("flash_attention", "flash_attention_headroom"):
+            check(launches[name] == expected,
+                  f"inverse node {mode}: {name} {launches[name]} launches, expected {expected}")
+        check(launches["quant_matmul_w8a8"] == expected_qmm,
+              f"inverse node {mode}: {launches['quant_matmul_w8a8']} W8A8 launches, "
+              f"expected {expected_qmm}")
+        del pipe, outs, ref
+        torch.cuda.empty_cache()
+
+    pipe = api.load_pipeline(model_type="forward")
+    (env,) = cn.LoadHDRImage().load_hdr(env_path)
+    check(tuple(env.shape) == (1, 1024, 2048, 3) and float(env.max()) > 1.0,
+          f"LoadHDRImage: {tuple(env.shape)}, max {float(env.max())}")
+    gbuf = {g: _unit_tensor(rng, (1, FWD_RES, FWD_RES, 3))
+            for g in ("depth", "normal", "roughness", "metallic", "base_color")}
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    (out,) = cn.Cosmos1ForwardRenderer().run_forward_pass(pipe, env_map=env, seed=28, **gbuf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expected = steps * blocks + 9
+    launches = dict(fa.LAUNCHES)
+    rec["forward"] = {"wall_s": wall, "launches": launches, "expected_launches": expected}
+    v = out.numpy()
+    check(tuple(out.shape) == (1, FWD_RES, FWD_RES, 3) and bool(np.isfinite(v).all())
+          and v.min() >= 0.0 and v.max() <= 1.0, "forward node: bad output")
+    for name in ("flash_attention", "flash_attention_headroom"):
+        check(launches[name] == expected,
+              f"forward node: {name} {launches[name]} launches, expected {expected}")
+    del pipe
+    torch.cuda.empty_cache()
+    say("surface_nodes " + json.dumps(rec))
+    return rec
+
+
+def server_phase():
+    """ServingExecutor(max_batch=5) over a bf16 inverse pipeline at 512x512:
+    five requests (context_index 0-4, seeds 0-4) from five threads go out as
+    one dispatch of 5 rows, bitwise a direct 5-row generate of the same
+    rows and within SERVER_PSNR_DB of each request generated alone; then a
+    trickle of two shape buckets, and shutdown(drain=True) with requests
+    pending."""
+    import threading
+
+    import numpy as np
+    import torch
+    from diffusionrenderer_tpu_torch import load_pipeline
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.serving import ServingExecutor
+    from diffusionrenderer_tpu_torch.utils.metrics import psnr
+    from diffusionrenderer_tpu_torch.utils.profiling import metrics
+
+    pipe = load_pipeline()
+    rng = np.random.default_rng(29)
+    image = rng.integers(0, 256, (1, 1, FWD_RES, FWD_RES, 3), dtype=np.uint8)
+    reqs = [{"rgb": image, "context_index": np.asarray([i])} for i in range(5)]
+    solo, solo_s = [], []
+    for i, r in enumerate(reqs):
+        t0 = time.perf_counter()
+        solo.append(pipe.generate(r, seed=i))
+        solo_s.append(time.perf_counter() - t0)
+    merged = {"rgb": np.concatenate([image] * 5), "context_index": np.arange(5)}
+    direct_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        direct = pipe.generate(merged, normalize_normal=np.zeros(5, np.float32),
+                               seed=list(range(5)))
+        direct_s.append(time.perf_counter() - t0)
+
+    ex = ServingExecutor(pipe, max_batch=5, max_wait_ms=2000)
+    metrics.reset()
+    fa.reset_counts()
+    results, latency = [None] * 5, [0.0] * 5
+    start = threading.Barrier(5)
+
+    def client(i):
+        start.wait(timeout=60)
+        t0 = time.perf_counter()
+        results[i] = ex.submit(reqs[i], seed=i).result(timeout=600)
+        latency[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(5)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "server: a client did not return")
+    launches = dict(fa.LAUNCHES)
+    dispatch = metrics.summary()["serving/dispatch"]
+    expected = 15 * 28 + 2
+    rows = [{"psnr_vs_solo_db": psnr(r, s), "max_abs_vs_solo": int(np.abs(
+        r.astype(int) - s.astype(int)).max()), "bitwise_direct": bool(np.array_equal(
+            r, direct[i:i + 1]))} for i, (r, s) in enumerate(zip(results, solo))]
+    rec = {"dispatches": dispatch["count"], "dispatch_s": dispatch["total_s"],
+           "direct_5_row_generate_s": direct_s, "solo_generate_s": solo_s,
+           "latency_s": latency, "latency_median_s": statistics.median(latency),
+           # The server's own time: a request's latency outside its generate
+           # (queue hand-off, host merge, futures), and the dispatch's
+           # generate beside a direct one of the same rows.
+           "server_overhead_s": statistics.median(latency) - dispatch["total_s"],
+           "dispatch_minus_direct_median_s": dispatch["total_s"] - statistics.median(direct_s),
+           "launches": launches, "expected_launches": expected, "rows": rows,
+           "psnr_floor_db": SERVER_PSNR_DB}
+    check(dispatch["count"] == 1, f"server: {dispatch['count']} dispatches, expected one of 5")
+    for name in ("flash_attention", "flash_attention_headroom"):
+        check(launches[name] == expected,
+              f"server: {name} {launches[name]} launches, expected {expected}")
+    for i, (r, row) in enumerate(zip(results, rows)):
+        check(r.shape == (1, 1, FWD_RES, FWD_RES, 3) and r.dtype == np.uint8,
+              f"server row {i}: {r.shape} {r.dtype}")
+        check(row["bitwise_direct"], f"server row {i}: differs from the direct 5-row generate")
+        check(row["psnr_vs_solo_db"] >= SERVER_PSNR_DB,
+              f"server row {i}: {row['psnr_vs_solo_db']:.2f} dB from its solo run")
+
+    # Two shape buckets in a trickle, then a drain with requests pending.
+    small = {"rgb": rng.integers(0, 256, (1, 1, 256, 256, 3), dtype=np.uint8),
+             "context_index": np.asarray([3])}
+    metrics.reset()
+    futs = []
+    for i in range(6):
+        futs.append(ex.submit(reqs[i % 5] if i % 2 == 0 else small, seed=i))
+        time.sleep(0.02)
+    pending = [ex.submit(reqs[i], seed=10 + i) for i in range(3)]
+    ex.shutdown(drain=True, join_timeout=600)
+    check(not ex._worker.is_alive(), "server: the worker outlived shutdown")
+    for i, f in enumerate(futs + pending):
+        check(f.done(), f"server: future {i} pending after shutdown(drain=True)")
+        side = 256 if i < 6 and i % 2 else FWD_RES
+        out = f.result(timeout=1)
+        check(out.shape == (1, 1, side, side, 3), f"server: future {i} shape {out.shape}")
+    rec["trickle_and_drain"] = {"requests": len(futs) + len(pending),
+                                "dispatches": metrics.summary()["serving/dispatch"]["count"]}
+    del pipe
+    torch.cuda.empty_cache()
+    say("surface_server " + json.dumps(rec))
     return rec
 
 
@@ -2389,7 +2746,33 @@ def main() -> int:
             "flash_attention_headroom" if rec["name"] == "flash_attention_headroom"
             else "flash_attention"]
     records[3]["launches_checkpoint_w8a8_forward"] = ckpt["w8a8_forward_launches"]
-    say(f"  phase 26: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
+    say(f"  phase 26: {time.perf_counter() - t:.1f} s")
+    try:
+        t = phase("27 surfaces: the CLI in subprocesses on the card")
+        cli = cli_phase(env_path, ckpt)
+        say(f"  phase 27: {time.perf_counter() - t:.1f} s")
+        t = phase("28 surfaces: the ComfyUI nodes")
+        nodes = nodes_phase(env_path, ckpt)
+        say(f"  phase 28: {time.perf_counter() - t:.1f} s")
+    finally:
+        import shutil
+
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    t = phase("29 surfaces: the batching server")
+    server = server_phase()
+    say(f"  phase 29: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
+    for rec in records[:3]:
+        key = "flash_attention_headroom" if rec["name"] == "flash_attention_headroom" \
+            else "flash_attention"
+        rec["launches_surfaces"] = {
+            "cli_inverse": cli["inverse"]["launches"][key],
+            "cli_forward": cli["forward"]["launches"][key],
+            "node_inverse_bf16": nodes["inverse_bf16"]["launches"][key],
+            "node_inverse_w8a8": nodes["inverse_w8a8"]["launches"][key],
+            "node_forward": nodes["forward"]["launches"][key],
+            "server_dispatch": server["launches"][key]}
+    records[3]["launches_surfaces"] = {
+        "node_inverse_w8a8": nodes["inverse_w8a8"]["launches"]["quant_matmul_w8a8"]}
     say(card)  # again here: the end of a long log is what survives
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -26,3 +26,14 @@ from .pipeline import DiffusionRendererPipeline
 from .api import forward_render, inverse_render, load_hdr, load_pipeline
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # ComfyUI discovers plugins by reading NODE_CLASS_MAPPINGS off the
+    # package; loaded on first access so library users never import the
+    # node layer.
+    if name in ("NODE_CLASS_MAPPINGS", "NODE_DISPLAY_NAME_MAPPINGS"):
+        from . import comfy_nodes
+
+        return getattr(comfy_nodes, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

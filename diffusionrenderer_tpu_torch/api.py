@@ -12,6 +12,7 @@ runs on CUDA unless `load_pipeline(device="cpu")` asks for the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import json
@@ -28,9 +29,10 @@ from .models.dit import init_dit_params
 from .models.quant import quantize_block
 from .models.vae import init_vae_params, load_latent_stats
 from .pipeline import DiffusionRendererPipeline
-from .utils.device import DeviceLike, resolve_device
+from .utils.device import DeviceLike, resolve_device, synchronize
 from .utils.hostops import to_float32, to_signed_range, u8_to_unit_float
 from .utils.layout import to_5d_video
+from .utils.profiling import phase_timer
 
 INVERSE_PASSES = ("basecolor", "metallic", "roughness", "normal", "depth")
 
@@ -136,6 +138,14 @@ def load_pipeline(
     )
 
 
+@contextlib.contextmanager
+def _phase(name: str, device):
+    """phase_timer closed after the device's queued work (the upload)."""
+    with phase_timer(name):
+        yield
+        synchronize(device)
+
+
 def _prep_input_video(image) -> np.ndarray:
     """uint8 stays uint8 (range-mapped on the device); floats map
     [0, 1] -> [-1, 1] on the host."""
@@ -233,20 +243,26 @@ def inverse_render(
             outputs[p] = unit[i * b:(i + 1) * b].reshape(b * t, h, w, c)
         return outputs
 
+    # The serial job records the JAX package's phases: one upload, one
+    # generate per missing pass (each finished pass saved at once under
+    # resume_dir), one conversion per pass.
     todo = [p for p in passes if p not in done]
-    vid = pipeline.prepare_pixel_input(video) if todo else None
-    for p in passes:
-        if p in done:
-            raw_u8 = done[p]
-        else:
-            ctx = np.full((b,), GBUFFER_INDEX_MAPPING[p], np.int64)
-            raw_u8 = pipeline.generate({"rgb": vid, "video": vid, "context_index": ctx},
+    raw: Dict[str, np.ndarray] = dict(done)
+    if todo:
+        with _phase("api/upload_input", pipeline.device):
+            vid = pipeline.prepare_pixel_input(video)
+    for p in todo:
+        ctx = np.full((b,), GBUFFER_INDEX_MAPPING[p], np.int64)
+        with phase_timer("api/generate_pass"):
+            raw[p] = pipeline.generate({"rgb": vid, "video": vid, "context_index": ctx},
                                        normalize_normal=(p == "normal"), seed=seed)
             if resume_dir is not None and writer:
                 path = os.path.join(resume_dir, f"{p}.npy")
-                np.save(path + ".tmp.npy", raw_u8)
+                np.save(path + ".tmp.npy", raw[p])
                 os.replace(path + ".tmp.npy", path)
-        outputs[p] = u8_to_unit_float(raw_u8).reshape(b * t, h, w, c)
+    for p in passes:
+        with phase_timer("api/fetch_convert_output"):
+            outputs[p] = u8_to_unit_float(raw.pop(p)).reshape(b * t, h, w, c)
     return outputs
 
 

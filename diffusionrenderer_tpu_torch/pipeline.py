@@ -43,6 +43,7 @@ from .sampling.edm import edm_sigmas, sample_edm
 from .utils.device import synchronize
 from .utils.hostops import to_float32
 from .utils.layout import ncthw_to_nthwc, nthwc_to_ncthw
+from .utils.profiling import metrics
 
 # Keys searched, in order, to infer the input dimensions.
 SHAPE_INFERENCE_KEYS = (
@@ -192,7 +193,10 @@ class DiffusionRendererPipeline:
     Public surface of the JAX pipeline: set_model_type, generate, and the
     runtime guidance / num_steps / seed.  `timings` holds the wall seconds
     of the last generation's phases (encode, denoise, decode), each closed
-    by a device synchronize.  After shard(mesh), `mesh` is this rank's
+    by a device synchronize; the same seconds go to the metrics registry
+    (utils/profiling.metrics) as generate/encode_conditions,
+    generate/denoise and generate/decode, and the whole call as
+    generate/{model_type}.  After shard(mesh), `mesh` is this rank's
     parallel.sharding.Mesh and `sp_attn` the DiT's attention backend under
     it.  decode_chunk_frames, when set below the clip's latent frame count,
     decodes it in chunks of that many latent frames (_decode_overlapped)."""
@@ -354,11 +358,19 @@ class DiffusionRendererPipeline:
         return np.concatenate(pieces, axis=1)
 
     @contextlib.contextmanager
-    def _phase(self, name: str):
+    def _phase(self, metric: str, timing: Optional[str] = None):
+        """Time a phase up to a device synchronize: the seconds go to the
+        metrics registry under `metric` and, when `timing` is given, to
+        timings[timing]; one clock for both."""
         t0 = time.perf_counter()
-        yield
-        synchronize(self.device)
-        self.timings[name] = time.perf_counter() - t0
+        try:
+            yield
+            synchronize(self.device)
+        finally:
+            seconds = time.perf_counter() - t0
+            if timing is not None:
+                self.timings[timing] = seconds
+            metrics.record(metric, seconds)
 
     @torch.inference_mode()
     def generate(
@@ -420,45 +432,46 @@ class DiffusionRendererPipeline:
         pre_split = split and batch_tile == 1  # slice the pixel rows before the encode
         rows = (lambda x: batch_slice(x, mesh)) if split else (lambda x: x)  # noqa: E731
 
-        with self._phase("encode"):
-            latents = []
-            for i, key in enumerate(cfg.condition_keys):
-                if present[i]:
-                    src = key if key in data_batch else "rgb"
-                    pixels = self._upload(data_batch[src])
-                    latents.append(encode_condition(
-                        self.vae_params, rows(pixels) if pre_split else pixels, cfg=cfg))
-            latent_condition = assemble_conditions(latents, cfg=cfg, present=present,
-                                                   tile=batch_tile)
-            if split and not pre_split:
-                latent_condition = rows(latent_condition)
-            del latents
-        with self._phase("denoise"):
-            sigmas = edm_sigmas(self.num_steps, cfg.scheduler.sigma_max,
-                                cfg.scheduler.sigma_min)
-            state_shape = (b, *latent_condition.shape[1:4], cfg.vae.latent_channels)
-            if x_init is not None:
-                if tuple(x_init.shape) != state_shape:
-                    raise ValueError(f"x_init has shape {tuple(x_init.shape)}, "
-                                     f"expected {state_shape}")
-                x = x_init.to(device=self.device, dtype=dtype)
-            else:
-                x = noise_init(seed, float(sigmas[0]), shape=state_shape,
-                               noise_tile=noise_tile, dtype=dtype, device=self.device)
-            x = sample(self.dit_params, latent_condition, rows(ctx), rows(x), self.guidance,
-                       sigmas, cfg=cfg, use_cfg=self.guidance > 0,
-                       attn_backend="auto" if mesh is None else self.sp_attn, mesh=mesh)
-            del latent_condition
-        with self._phase("decode"):
-            ck = self.decode_chunk_frames
-            if ck and x.shape[1] > ck:
-                video_u8 = self._decode_overlapped(x, rows(normal_mask), cfg, ck)
-                if split:
-                    video_u8 = gather_batch(torch.from_numpy(video_u8).to(self.device),
-                                            mesh, b).cpu().numpy()
-            else:
-                video = decode(self.vae_params, x, rows(normal_mask), cfg=cfg)
-                if split:
-                    video = gather_batch(video, mesh, b)
-                video_u8 = video.cpu().numpy()
+        with self._phase(f"generate/{self.model_type}"):
+            with self._phase("generate/encode_conditions", "encode"):
+                latents = []
+                for i, key in enumerate(cfg.condition_keys):
+                    if present[i]:
+                        src = key if key in data_batch else "rgb"
+                        pixels = self._upload(data_batch[src])
+                        latents.append(encode_condition(
+                            self.vae_params, rows(pixels) if pre_split else pixels, cfg=cfg))
+                latent_condition = assemble_conditions(latents, cfg=cfg, present=present,
+                                                       tile=batch_tile)
+                if split and not pre_split:
+                    latent_condition = rows(latent_condition)
+                del latents
+            with self._phase("generate/denoise", "denoise"):
+                sigmas = edm_sigmas(self.num_steps, cfg.scheduler.sigma_max,
+                                    cfg.scheduler.sigma_min)
+                state_shape = (b, *latent_condition.shape[1:4], cfg.vae.latent_channels)
+                if x_init is not None:
+                    if tuple(x_init.shape) != state_shape:
+                        raise ValueError(f"x_init has shape {tuple(x_init.shape)}, "
+                                         f"expected {state_shape}")
+                    x = x_init.to(device=self.device, dtype=dtype)
+                else:
+                    x = noise_init(seed, float(sigmas[0]), shape=state_shape,
+                                   noise_tile=noise_tile, dtype=dtype, device=self.device)
+                x = sample(self.dit_params, latent_condition, rows(ctx), rows(x), self.guidance,
+                           sigmas, cfg=cfg, use_cfg=self.guidance > 0,
+                           attn_backend="auto" if mesh is None else self.sp_attn, mesh=mesh)
+                del latent_condition
+            with self._phase("generate/decode", "decode"):
+                ck = self.decode_chunk_frames
+                if ck and x.shape[1] > ck:
+                    video_u8 = self._decode_overlapped(x, rows(normal_mask), cfg, ck)
+                    if split:
+                        video_u8 = gather_batch(torch.from_numpy(video_u8).to(self.device),
+                                                mesh, b).cpu().numpy()
+                else:
+                    video = decode(self.vae_params, x, rows(normal_mask), cfg=cfg)
+                    if split:
+                        video = gather_batch(video, mesh, b)
+                    video_u8 = video.cpu().numpy()
         return video_u8

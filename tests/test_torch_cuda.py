@@ -611,3 +611,116 @@ def test_tiny_checkpoint_loads_on_the_card_as_on_the_cpu(cuda, tmp_path):
     q_card = load_pipeline(**kw, device=cuda, quantize_int8=True, act_quant=True,
                            quant_group_size=64)
     assert_same(q_card.dit_params, quantize_dit_params(on_card.dit_params, **quant), "cuda")
+
+
+# ---------------------------------------------------------------------------
+# The user surfaces on the card
+# ---------------------------------------------------------------------------
+
+SURFACE_NET = dict(model_channels=256, num_blocks=2, num_heads=2, adaln_lora_dim=8,
+                   crossattn_emb_channels=16)
+# A batched row against the same request alone, in bf16 on the card: cuBLAS
+# may pick another algorithm for 5 rows than for 1, so the rows are held to
+# a PSNR floor at uint8, not bit for bit.
+BATCH_PSNR_DB = 30.0
+
+
+def test_tiny_cli_in_a_subprocess_on_the_card(cuda, tmp_path):
+    """`python -m diffusionrenderer_tpu_torch.cli` without --cpu runs on the
+    card: info names it, inverse and envmap write their PNGs."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from diffusionrenderer_tpu_torch import io as tio
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rng = np.random.default_rng(0)
+    png, hdr = str(tmp_path / "rgb.png"), str(tmp_path / "sky.hdr")
+    tio.write_png(png, rng.integers(0, 256, (32, 32, 3), dtype=np.uint8))
+    tio.save_hdr(hdr, (np.abs(rng.standard_normal((16, 32, 3))) * 4).astype(np.float32))
+
+    def cli(*args):
+        res = subprocess.run([sys.executable, "-m", "diffusionrenderer_tpu_torch.cli", *args],
+                             cwd=root, capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, res.stderr[-4000:]
+        return res.stdout
+
+    info = json.loads(cli("info"))
+    assert info["backend"] == "cuda" and info["devices"] == torch.cuda.device_count()
+    cli("inverse", "--tiny", "--steps", "2", "--passes", "depth,normal", "--input", png,
+        "--output-dir", str(tmp_path / "inv"))
+    cli("envmap", "--input", hdr, "--height", "32", "--width", "32", "--output-prefix",
+        str(tmp_path / "env"))
+    for path in (tmp_path / "inv" / "depth.png", tmp_path / "inv" / "normal.png",
+                 tmp_path / "env_env_ldr.png", tmp_path / "env_env_log.png"):
+        img = tio.read_png(str(path))
+        assert img.shape == (32, 32, 3) and img.dtype == np.uint8
+
+
+def test_tiny_server_on_the_card(cuda):
+    """Five requests from five threads go out as one dispatch of 5 rows; each
+    row is within BATCH_PSNR_DB of the same request generated alone, and
+    every attention call of the dispatch launched the kernel."""
+    import threading
+
+    import numpy as np
+
+    from diffusionrenderer_tpu_torch import load_pipeline
+    from diffusionrenderer_tpu_torch.config import VAEConfig
+    from diffusionrenderer_tpu_torch.serving import ServingExecutor
+    from diffusionrenderer_tpu_torch.utils.metrics import psnr
+    from diffusionrenderer_tpu_torch.utils.profiling import metrics
+
+    net = DiTConfig(**SURFACE_NET, additional_concat_ch=16, use_context_embedding=True)
+    vae = VAEConfig(encoder_block_out_channels=(8, 12, 16, 16),
+                    decode_block_out_channels=(12, 16, 16, 16), num_layers=1)
+    pipe = load_pipeline(net_config=net, vae_config=vae, num_steps=3)
+    rng = np.random.default_rng(2)
+    reqs = [{"rgb": rng.integers(0, 256, (1, 1, 256, 256, 3), dtype=np.uint8),
+             "context_index": np.asarray([i])} for i in range(5)]
+    solo = [pipe.generate(r, seed=i) for i, r in enumerate(reqs)]
+    ex = ServingExecutor(pipe, max_batch=5, max_wait_ms=5000)
+    metrics.reset()
+    tfa.reset_counts()
+    results = [None] * 5
+    start = threading.Barrier(5)
+
+    def client(i):
+        start.wait(timeout=60)
+        results[i] = ex.submit(reqs[i], seed=i).result(timeout=600)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(5)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            assert not t.is_alive()
+    finally:
+        ex.shutdown(join_timeout=600)
+    assert metrics.summary()["serving/dispatch"]["count"] == 1
+    assert tfa.LAUNCHES["flash_attention"] == 3 * net.num_blocks
+    for got, want in zip(results, solo):
+        assert got.shape == want.shape and got.dtype == np.uint8
+        assert psnr(got, want) >= BATCH_PSNR_DB
+
+
+def test_trace_names_the_flash_attention_kernel(cuda, tmp_path):
+    import json
+    import os
+
+    from diffusionrenderer_tpu_torch.utils.profiling import annotate, trace
+
+    q, k, v = qkv(cuda, 1, 1024, 1024, 4, 128)
+    d = str(tmp_path / "trace")
+    with trace(d):
+        with annotate("drt_attention"):
+            tfa.flash_attention(q, k, v)
+    with open(os.path.join(d, "trace.json")) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    assert any("attention_kernel" in n for n in names), sorted(set(names))[:40]
+    assert "drt_attention" in names
