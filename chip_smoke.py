@@ -161,6 +161,24 @@ Phases (any failure raises and exits non-zero):
                generate, 422 attention launches; then a trickle of 512x512
                and 256x256 requests and shutdown(drain=True) with requests
                pending, every future resolved.
+  30. training - (a) FlashAttentionFunction at (1, 1024, 32, 128) bf16:
+               kernel 3 forward + the plain backward vs autograd through
+               attention_xla in fp32 (dq, dk, dv within 1e-2 relative L2),
+               its forward + backward time beside SDPA's; (b) one train
+               step's gradients of a 2-block DiT at the full width in bf16
+               through the kernel vs the plain path in fp32, leaf by leaf,
+               every leaf but the unused cross-attention q / k ones with a
+               gradient; (c) the 28-block FADITV2_7B from load_pipeline's
+               weights on VAE-encoded seeded 512x512 latents: 3 train steps
+               at batch 1 and 2 at batch 2 with grad_accum=2 (condition
+               dropout 0.1): losses finite, 28 kernel-3 launches per
+               microbatch forward, every leaf with a gradient moved (the
+               RMSNorm scales: a nonzero first moment); a sixth step under
+               torch.profiler (device time by class, the attention
+               backwards' and AdamW's share, idle share); step
+               wall times and the peak; (d) train_loop at 2 blocks, full
+               width: 4 steps straight and 2 + resume + 2 bitwise equal, the
+               save and restore seconds.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -2611,6 +2629,453 @@ def server_phase():
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Training: the attention gradient, DiT gradients, 7B train steps, resume
+# ---------------------------------------------------------------------------
+
+# One 512x512 frame's DiT attention at batch 1 (a microbatch of the train step).
+TRAIN_SHAPE = (1, 1024, 1024, 32, 128)
+# bf16 kernel 3 + the plain backward vs fp32 autograd: relative L2 of dq, dk, dv.
+TRAIN_ATTN_GRAD_TOL = 1e-2
+# Each leaf's gradient of a 2-block, full-width DiT step in bf16 through the
+# kernel vs the plain path in fp32: bf16 alone gives about 1e-2 (a 512-wide
+# 2-block model on the CPU, bf16 vs fp32, both plain); a gradient cut at the
+# attention leaves wq / wk / wv and the q / k norms at 100%.
+TRAIN_DIT_GRAD_TOL = 5e-2
+# The learning rate: make_optimizer's default, as in JAX.  At 3e-3 the
+# 4096-wide model diverged within two steps (loss 5.1 -> 2,394 -> 848,417 on
+# the H100).  At 1e-4 a bf16 weight of 1.0 (the RMSNorm scales at init)
+# cannot move: AdamW's early steps are +-lr and half an ulp below 1.0 is
+# 2^-9, so those leaves are held to a nonzero first moment instead.
+TRAIN_LR = 1e-4
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+# The leaves the exact single-key cross-attention never reads: no gradient
+# in the port, exactly zero in JAX; only AdamW's decay (lr * 0.01 * p, far
+# below half a bf16 ulp) touches them.
+UNUSED_CA = ("wq", "wk", "q_norm", "k_norm")
+
+
+def fwd_bwd_bound(shape):
+    """(bound_ms, bound_by) of an attention forward + backward: q, k, v and
+    dO read, out, dq, dk, dv written once; 4 + 10 B*Lq*Lk*H*D operations
+    (QK^T, PV; and QK^T again, dV, dP, dQ, dK) at the bf16 rate."""
+    b, lq, lk, h, d = shape
+    nbytes = (4 * lq + 2 * lk + 2 * lk) * b * h * d * 2
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 14 * b * lq * lk * h * d / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def train_attention_grad_phase():
+    """(a) FlashAttentionFunction at the train step's attention shape: kernel
+    3 forward + the plain backward vs autograd through attention_xla in
+    fp32, and its forward + backward time beside SDPA's (a yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.ops.attention import attention, attention_xla
+
+    q, k, v = make_qkv(TRAIN_SHAPE, rms_normed=True, seed=30)
+    do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(31),
+                     device="cuda").bfloat16()
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+
+    def kernel_path():
+        out = attention(q, k, v, backend="pallas")
+        return out, torch.autograd.grad(out, (q, k, v), do)
+
+    fa.reset_counts()
+    out, got = kernel_path()
+    launches = dict(fa.VARIANT_LAUNCHES)
+    check(launches["flash_attention_partial"] == 1 and fa.LAUNCHES["flash_attention"] == 0,
+          f"attention under grad: launches {launches} {fa.LAUNCHES}, expected one kernel 3")
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    out_ref = attention_xla(qf, kf, vf)
+    want = torch.autograd.grad(out_ref, (qf, kf, vf), do.float())
+    rec = {"shape": list(TRAIN_SHAPE), "out_rel_l2": rel_l2(out, out_ref),
+           "grad_rel_l2": {f"d{n}": rel_l2(g, w) for n, g, w in zip("qkv", got, want)},
+           "tol": TRAIN_ATTN_GRAD_TOL}
+    del qf, kf, vf, out_ref, want
+    say("train_attention_grad " + json.dumps(rec))
+    for name, err in rec["grad_rel_l2"].items():
+        check(math.isfinite(err) and err <= TRAIN_ATTN_GRAD_TOL,
+              f"attention gradient {name}: relative L2 {err:.3g} > {TRAIN_ATTN_GRAD_TOL}")
+
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qt, kt, vt)
+        return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    def kernel3():
+        with torch.no_grad():
+            fa.flash_attention_partial(q.detach(), k.detach(), v.detach())
+
+    # Event times, and queued times (every call enqueued behind a sleep
+    # kernel: the device time alone, where a 0.05 ms launch would read the
+    # host's launch rate).
+    rec["kernel3_fwd_ms"], rec["kernel3_fwd_queued_ms"] = time_ms(kernel3, 20), queued_ms(kernel3, 20)
+    rec["fwd_bwd_ms"], rec["fwd_bwd_queued_ms"] = time_ms(kernel_path, 10), queued_ms(kernel_path, 10)
+    rec["plain_backward_ms"] = rec["fwd_bwd_queued_ms"] - rec["kernel3_fwd_queued_ms"]
+    rec["library_fwd_bwd_ms"], rec["library_fwd_bwd_queued_ms"] = (time_ms(sdpa, 10),
+                                                                   queued_ms(sdpa, 10))
+    rec["bound_ms"], rec["bound_by"] = fwd_bwd_bound(TRAIN_SHAPE)
+    rec["library"] = "F.scaled_dot_product_attention forward + backward, bf16 (a yardstick)"
+    say("train_attention_grad " + json.dumps(rec))
+    return rec
+
+
+def _train_inputs(batch: int, seed: int, lat=None, ctx=None):
+    """A train batch: latents and conditions (B, 1, 64, 64, 16) bf16, from
+    `lat` (rows of encoded latents) or seeded normals; context_index `ctx`,
+    or 0-4 cycled."""
+    import torch
+
+    if lat is None:
+        g = torch.Generator("cuda").manual_seed(seed)
+        x0 = torch.randn(batch, 1, 64, 64, 16, generator=g, device="cuda").bfloat16()
+        cond = torch.randn(batch, 1, 64, 64, 16, generator=g, device="cuda").bfloat16()
+    else:
+        x0 = torch.cat([lat["targets"][(seed + i) % len(lat["targets"])] for i in range(batch)])
+        cond = lat["rgb"].expand(batch, -1, -1, -1, -1).contiguous()
+    if ctx is None:
+        ctx = [(seed * batch + i) % 5 for i in range(batch)]
+    ctx = torch.tensor(ctx, device="cuda")
+    return {"latents": x0, "latent_condition": cond, "context_index": ctx}
+
+
+def _grads(params, batch, draws, cfg, backend):
+    import torch
+    from diffusionrenderer_tpu_torch.training import edm_loss
+    from diffusionrenderer_tpu_torch.utils.tree import leaves as tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = edm_loss(params, *batch.values(), None, cfg, condition_drop_rate=0.1, draws=draws,
+                    attn_backend=backend)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def _leaf_names(params):
+    from diffusionrenderer_tpu_torch.utils.tree import flatten
+
+    return list(flatten(params, "params"))
+
+
+def train_dit_grad_phase():
+    """(b) One train step's gradients of a 2-block DiT at the full width
+    (4096, 32 heads) in bf16 through the kernel path, leaf by leaf against
+    the plain-attention path in fp32 (and the bf16 plain path beside it)."""
+    import dataclasses
+
+    import torch
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+    from diffusionrenderer_tpu_torch.models.dit import init_dit_params
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.training.train import edm_draws
+    from diffusionrenderer_tpu_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(get_inverse_renderer_config(512, 512, 1).net, num_blocks=2)
+    params = init_dit_params(cfg, device="cuda", dtype=torch.bfloat16, seed=32)
+    batch = _train_inputs(1, 32)
+    draws = edm_draws(torch.Generator("cuda").manual_seed(33), batch["latents"])
+    fa.reset_counts()
+    loss16, g16 = _grads(params, batch, draws, cfg, "auto")
+    launches = fa.VARIANT_LAUNCHES["flash_attention_partial"]
+    check(launches == cfg.num_blocks and fa.LAUNCHES["flash_attention"] == 0,
+          f"2-block train step: {launches} kernel-3 launches, expected {cfg.num_blocks}")
+    _, g16_plain = _grads(params, batch, draws, cfg, "xla")
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    loss32, g32 = _grads(p32, {k: v.float() if v.is_floating_point() else v
+                               for k, v in batch.items()}, draws, cfg, "xla")
+    names = _leaf_names(p32)
+    leaves, missing, unused = {}, [], []
+    for name, a, a_plain, w in zip(names, g16, g16_plain, g32):
+        if w is None or a is None:
+            (unused if name.split("/")[-1] in UNUSED_CA and "/ca/" in name
+             else missing).append(name)
+            check((w is None) == (a is None), f"{name}: a gradient on one path only")
+            continue
+        leaves[name] = {"kernel_bf16": rel_l2(a, w), "plain_bf16": rel_l2(a_plain, w)}
+    worst = max(leaves.items(), key=lambda kv: kv[1]["kernel_bf16"])
+    rec = {"config": "FADITV2_7B width, 2 blocks", "tokens": 1024, "kernel3_launches": launches,
+           "loss_bf16_kernel": float(loss16), "loss_fp32_plain": float(loss32),
+           "leaves_with_gradient": len(leaves), "leaves_without": unused,
+           "worst_leaf": worst[0], "worst_rel_l2": worst[1],
+           "median_rel_l2_kernel": statistics.median(x["kernel_bf16"] for x in leaves.values()),
+           "max_rel_l2_plain_bf16": max(x["plain_bf16"] for x in leaves.values()),
+           "tol": TRAIN_DIT_GRAD_TOL, "attention_leaves": {
+               n: leaves[n] for n in leaves if "/fa/" in n and n.startswith("params/blocks/0/")}}
+    say("train_dit_grad " + json.dumps(rec))
+    check(not missing, f"leaves with no gradient: {missing}")
+    check(len(unused) == len(UNUSED_CA) * cfg.num_blocks,
+          f"expected the {len(UNUSED_CA) * cfg.num_blocks} unused cross-attention leaves "
+          f"without a gradient, got {unused}")
+    for name, errs in leaves.items():
+        check(math.isfinite(errs["kernel_bf16"]) and errs["kernel_bf16"] <= TRAIN_DIT_GRAD_TOL,
+              f"{name}: gradient relative L2 {errs['kernel_bf16']:.3g} > {TRAIN_DIT_GRAD_TOL}")
+    return rec
+
+
+def profile_train_step(step, state, inputs, generator, opt):
+    """torch.profiler over one train step: device time by kernel class
+    (the fused AdamW's apart), the idle share of the wall time, and
+    the stream time of the attention backwards and of the AdamW update,
+    each between CUDA events recorded around its calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    backward, update = fa.flash_attention_backward_plain, opt.update
+    spans = {"attention_backward": [], "adamw": []}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            stop.record()
+            spans[name].append((start, stop))
+            return out
+        return call
+
+    fa.flash_attention_backward_plain = timed("attention_backward", backward)
+    opt.update = timed("adamw", update)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, loss = step(state, inputs, generator)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fa.flash_attention_backward_plain = backward
+        del opt.update  # the instance attribute: AdamW.update again
+    classes = {"gemm": 0.0, "flash_attention": 0.0, "adamw": 0.0,
+               "elementwise/other": 0.0}
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("Command Buffer"):
+            continue
+        dev_ms = (ev.self_device_time_total if hasattr(ev, "self_device_time_total")
+                  else ev.self_cuda_time_total) / 1e3
+        name, low = ev.key, ev.key.lower()
+        if "partial_kernel" in name or "attention_kernel" in name:
+            cls = "flash_attention"
+        elif "multi_tensor_apply" in name:  # the fused AdamW (and its count's add)
+            cls = "adamw"
+        elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
+            cls = "gemm"
+        else:
+            cls = "elementwise/other"
+        classes[cls] += dev_ms
+        top.append((dev_ms, ev.count, name[:80]))
+    busy = sum(classes.values())
+    top.sort(reverse=True)
+    rec = {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1 - busy / wall_ms,
+           "by_class_ms": classes, "loss": float(loss),
+           **{f"{k}_stream_ms": sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()},
+           "attention_backward_calls": len(spans["attention_backward"]),
+           "top": [[round(t, 3), c, n] for t, c, n in top[:12]]}
+    say("profile_train_step " + json.dumps(rec))
+    return state, rec
+
+
+def train_7b_phase(seed: int = 34):
+    """(c) The full 28-block FADITV2_7B in bf16 (load_pipeline's seeded
+    weights) takes 3 train steps at batch 1 and 2 at batch 2 with
+    grad_accum=2, condition dropout 0.1, on latents of seeded 512x512 clips
+    from the port's VAE encode: step losses and wall times, the peak, kernel
+    3's launches per step, and a sixth step at batch 1 under torch.profiler;
+    every leaf that has a gradient got a nonzero first moment, and moved
+    unless it is an RMSNorm scale."""
+    import gc
+
+    import numpy as np
+    import torch
+    from diffusionrenderer_tpu_torch import load_pipeline
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.training import (init_train_state, make_optimizer,
+                                                      make_train_step)
+    from diffusionrenderer_tpu_torch.training.loop import step_generator
+    from diffusionrenderer_tpu_torch.utils.tree import leaves as tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"start_allocated_gib": torch.cuda.memory_allocated() / GIB}
+    t0 = time.perf_counter()
+    pipe = load_pipeline()
+    cfg = get_inverse_renderer_config(512, 512, 1).net  # load_pipeline's inverse DiT
+    rng = np.random.default_rng(seed)
+    clips = torch.from_numpy(rng.uniform(-1, 1, (3, 1, 512, 512, 3)).astype(np.float32))
+    with torch.no_grad():
+        z = pipe.encode(clips.to("cuda", torch.bfloat16))  # (3, 1, 64, 64, 16), * sigma_data
+    lat = {"rgb": z[:1], "targets": [z[1:2], z[2:3]]}
+    params = pipe.dit_params
+    del pipe, z
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["setup_s"] = time.perf_counter() - t0
+    rec["weights_gib"] = sum(p.numel() * p.element_size() for p in tree_leaves(params)) / GIB
+    names = _leaf_names(params)
+    host = [p.to("cpu", copy=True) for p in tree_leaves(params)]
+    opt = make_optimizer(TRAIN_LR)
+    state = init_train_state(params, opt)
+    steps = {1: make_train_step(cfg, opt, condition_drop_rate=0.1),
+             2: make_train_step(cfg, opt, condition_drop_rate=0.1, grad_accum=2)}
+    rec["steps"] = []
+    for i, (batch, accum) in enumerate(((1, 1), (1, 1), (1, 1), (2, 2), (2, 2))):
+        inputs = _train_inputs(batch, i, lat)
+        torch.cuda.synchronize()
+        fa.reset_counts()
+        t = time.perf_counter()
+        state, loss = steps[accum](state, inputs, step_generator(seed, i))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        rec["steps"].append({"step": state.step, "batch": batch, "grad_accum": accum,
+                             "loss": float(loss), "wall_s": wall,
+                             "kernel3_launches": fa.VARIANT_LAUNCHES["flash_attention_partial"],
+                             "other_attention_launches": fa.LAUNCHES["flash_attention"]})
+        say(f"  train step {state.step}: batch {batch}, grad_accum {accum}, loss "
+            f"{float(loss):.6f}, {wall:.3f} s")
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / GIB
+    rec["params_grads_moments_gib"] = 4 * rec["weights_gib"]
+    fa.reset_counts()
+    state, rec["profile_step6"] = profile_train_step(steps[1], state, _train_inputs(1, 5, lat),
+                                                     step_generator(seed, 5), opt)
+    check(fa.VARIANT_LAUNCHES["flash_attention_partial"] == cfg.num_blocks,
+          "profiled train step: kernel-3 launches")
+    unused = {n for n in names if "/ca/" in n and n.split("/")[-1] in UNUSED_CA}
+    scales = {n for n in names if n.endswith(("/q_norm", "/k_norm", "affline_norm/weight"))}
+    unmoved, zero_mu = set(), set()
+    for name, before, after, mu in zip(names, host, tree_leaves(state.params),
+                                       tree_leaves(state.opt_state.mu)):
+        if torch.equal(before.to("cuda"), after):
+            unmoved.add(name)
+        if not bool(mu.any()):
+            zero_mu.add(name)
+    rec["leaves"] = len(names)
+    rec["moved_leaves"] = len(names) - len(unmoved)
+    rec["unmoved_rmsnorm_scales"] = len(unmoved & scales - unused)
+    rec["unused_ca_leaves"] = len(unused)
+    rec["zero_first_moment_leaves"] = len(zero_mu)
+    say("train_7b " + json.dumps(rec))
+    for srec in rec["steps"]:
+        check(math.isfinite(srec["loss"]), f"train step {srec['step']}: loss {srec['loss']}")
+        want = cfg.num_blocks * srec["grad_accum"]
+        check(srec["kernel3_launches"] == want and srec["other_attention_launches"] == 0,
+              f"train step {srec['step']}: {srec['kernel3_launches']} kernel-3 launches, "
+              f"expected {want} (28 per microbatch forward)")
+    # Every leaf with a gradient got a nonzero first moment and moved, but
+    # the RMSNorm scales (ones: no bf16 step of lr reaches them); the unused
+    # cross-attention leaves have a zero first moment, as in JAX.
+    check(zero_mu == unused, f"first moment zero on {sorted(zero_mu ^ unused)[:8]} beyond the "
+                             f"{len(unused)} unused cross-attention leaves")
+    check(unmoved <= unused | scales,
+          f"leaves with a gradient that did not move: {sorted(unmoved - unused - scales)[:8]}")
+    del state, params, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+# (d)'s runs: (batch, grad_accum, context_index).  The second repeats each
+# context index within a microbatch, so the backward of the context table's
+# gather sums rows that share an index.
+TRAIN_RESUME_RUNS = ((1, 1, None), (4, 2, [2, 2, 4, 4]))
+
+
+def train_resume_phase(seed: int = 35):
+    """(d) train_loop at 2 blocks, full width, for each of TRAIN_RESUME_RUNS:
+    4 steps straight with save_every=2, and 2 steps then a resume and 2
+    more, bitwise equal (parameters, both moments, losses); save and
+    restore seconds."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+    from diffusionrenderer_tpu_torch.models.dit import init_dit_params
+    from diffusionrenderer_tpu_torch.training import (init_train_state, make_optimizer,
+                                                      make_train_step, train_loop)
+    from diffusionrenderer_tpu_torch.training.loop import (restore_train_state,
+                                                           save_train_state)
+    from diffusionrenderer_tpu_torch.utils.tree import leaves as tree_leaves
+
+    cfg = dataclasses.replace(get_inverse_renderer_config(512, 512, 1).net, num_blocks=2)
+    opt = make_optimizer(TRAIN_LR)
+
+    def make_state():
+        return init_train_state(init_dit_params(cfg, device="cuda", dtype=torch.bfloat16,
+                                                seed=seed), opt)
+
+    def leaves(s):
+        return tree_leaves([s.params, s.opt_state.mu, s.opt_state.nu])
+
+    rec = {"runs": []}
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_DIR)
+    try:
+        for batch, accum, ctx in TRAIN_RESUME_RUNS:
+            step = make_train_step(cfg, opt, condition_drop_rate=0.1, grad_accum=accum)
+
+            def batch_fn(i, batch=batch, ctx=ctx):
+                return _train_inputs(batch, 100 + i, ctx=ctx)
+
+            def run(sub, n, step=step, batch_fn=batch_fn):
+                return train_loop(make_state, step, batch_fn, num_steps=n, seed=seed,
+                                  ckpt_dir=os.path.join(TRAIN_DIR, sub), save_every=2,
+                                  max_to_keep=1, log_every=0)
+
+            tag = f"b{batch}_accum{accum}"
+            full, losses_full = run(f"{tag}_full", 4)
+            _, head = run(f"{tag}_cut", 2)
+            resumed, tail = run(f"{tag}_cut", 4)
+            differ = sum(not torch.equal(a, b) for a, b in zip(leaves(full), leaves(resumed)))
+            rec["runs"].append({
+                "batch": batch, "grad_accum": accum, "context_index": ctx,
+                "losses_straight": losses_full, "losses_cut_then_resumed": head + tail,
+                "leaves": len(leaves(full)), "leaves_differing": differ,
+                "step": [full.step, resumed.step],
+                "count": [full.opt_state.count, resumed.opt_state.count]})
+            if len(rec["runs"]) == 1:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                path = save_train_state(os.path.join(TRAIN_DIR, "timing"), full)
+                rec["save_s"] = time.perf_counter() - t
+                t = time.perf_counter()
+                back = restore_train_state(path)
+                torch.cuda.synchronize()
+                rec["restore_s"] = time.perf_counter() - t
+                rec["save_restore_bitwise"] = all(
+                    torch.equal(a, b) for a, b in zip(leaves(full), leaves(back), strict=True))
+                rec["state_gib"] = sum(x.numel() * x.element_size() for x in leaves(full)) / GIB
+                del back
+            del full, resumed
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    say("train_resume " + json.dumps(rec))
+    for r in rec["runs"]:
+        what = f"resume at batch {r['batch']}, grad_accum {r['grad_accum']}"
+        check(r["losses_cut_then_resumed"] == r["losses_straight"],
+              f"{what}: the losses differ from the straight run")
+        check(r["leaves_differing"] == 0 and r["step"] == [4, 4] and r["count"] == [4, 4],
+              f"{what}: {r['leaves_differing']} of {r['leaves']} leaves differ from the "
+              f"straight run")
+    check(rec["save_restore_bitwise"], "save_train_state / restore_train_state is not bitwise")
+    return rec
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "diffusionrenderer_tpu_torch")):
         print("chip_smoke.py runs from the root of a checkout: the package "
@@ -2760,7 +3225,19 @@ def main() -> int:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     t = phase("29 surfaces: the batching server")
     server = server_phase()
-    say(f"  phase 29: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
+    say(f"  phase 29: {time.perf_counter() - t:.1f} s")
+    t = phase("30 training: attention gradient, 2-block gradients, 7B train steps, resume")
+    train = {"attention_grad": train_attention_grad_phase(), "dit_grad": train_dit_grad_phase(),
+             "7b": train_7b_phase(), "resume": train_resume_phase()}
+    say(f"  phase 30: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
+    kernel3 = next(r for r in records if r["name"] == "flash_attention_partial")
+    kernel3["launches_train_steps"] = [s_["kernel3_launches"] for s_ in train["7b"]["steps"]]
+    kernel3["launches_train_note"] = ("FADITV2_7B train steps (3 at batch 1, 2 at batch 2 "
+                                      "with grad_accum=2): 28 per microbatch forward")
+    kernel3["training_shape"] = {k_: train["attention_grad"][k_] for k_ in (
+        "shape", "kernel3_fwd_ms", "kernel3_fwd_queued_ms", "fwd_bwd_ms", "fwd_bwd_queued_ms",
+        "plain_backward_ms", "library_fwd_bwd_ms", "library_fwd_bwd_queued_ms", "bound_ms",
+        "bound_by", "grad_rel_l2", "library")}
     for rec in records[:3]:
         key = "flash_attention_headroom" if rec["name"] == "flash_attention_headroom" \
             else "flash_attention"

@@ -2,7 +2,8 @@
 diffusionrenderer_tpu for NVIDIA Hopper (H100).
 
 Same configs, module names, layouts and public entry points as the JAX
-package (load_pipeline, inverse_render, forward_render, load_hdr); every
+package (load_pipeline, inverse_render, forward_render, load_hdr, and the
+trainer: make_train_step, train_loop); every
 kernel that the JAX package wrote in Pallas has a hand-written CUDA
 counterpart (csrc/), built on first use.  Entry points run on CUDA unless
 the caller asks for the CPU (device="cpu").  This package imports
@@ -24,6 +25,8 @@ from .config import (
 )
 from .pipeline import DiffusionRendererPipeline
 from .api import forward_render, inverse_render, load_hdr, load_pipeline
+from .training import (TrainState, edm_loss, init_train_state, make_optimizer,
+                       make_train_step, train_loop)
 
 __version__ = "0.1.0"
 

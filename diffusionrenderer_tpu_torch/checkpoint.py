@@ -49,6 +49,9 @@ parameter dicts, doing every layout change here:
   dense weights (in, out) become (out, in).
 
 Both are strict: a missing leaf, an extra leaf or a wrong shape raises.
+`train_state_from_numpy` carries a JAX TrainState over (params, then
+optax adamw's ScaleByAdamState(count, mu, nu)), mapping the params and
+both moments as DiT trees; JAX's gradients map the same way.
 The expected structure is the port's own random init built on the 'meta'
 device, so the two trees cannot drift apart silently.
 """
@@ -56,7 +59,7 @@ device, so the two trees cannot drift apart silently.
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,21 +70,12 @@ from .models.quant import QUANTIZED_BLOCK_WEIGHTS, is_quantized, quantize_block,
 from .models.vae import init_vae_params
 from .utils.device import DeviceLike, resolve_device
 from .utils.safetensors import SafetensorsFile, read_header, write_safetensors
+from .utils.tree import flatten as _flatten
+
+if TYPE_CHECKING:
+    from .training.train import TrainState
 
 Params = Dict[str, Any]
-
-
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        return {prefix: tree}
-    out: Dict[str, Any] = {}
-    for k, v in items:
-        out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
-    return out
 
 
 def _fill(expected: Any, leaves: Dict[str, np.ndarray],
@@ -146,6 +140,39 @@ def dit_params_from_numpy(tree: Dict[str, Any], cfg: DiTConfig, *,
     params = _fill(expected, leaves, convert, device, dtype)
     _check_consumed(leaves)
     return params
+
+
+def _adam_state(opt_state: Any) -> Any:
+    """The first node of an optax state with count, mu and nu (adamw's
+    ScaleByAdamState, first in its chain)."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_numpy(state: Any, cfg: DiTConfig, *, device: DeviceLike = None,
+                           dtype: Optional[torch.dtype] = None) -> TrainState:
+    """A JAX TrainState(params, opt_state, step) with numpy leaves (after
+    jax.device_get) -> the port's TrainState on CUDA unless `device` says
+    otherwise: the params and optax's first and second moments through
+    dit_params_from_numpy, the Adam count and the step as ints."""
+    from .training.train import AdamState, TrainState  # the I/O layer imports no trainer
+
+    params, opt_state, step = state
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("the optimizer state holds no Adam state (count, mu, nu)")
+
+    def tree(t):
+        return dit_params_from_numpy(t, cfg, device=device, dtype=dtype)
+
+    return TrainState(tree(params), AdamState(int(np.asarray(adam.count)), tree(adam.mu),
+                                              tree(adam.nu)), int(np.asarray(step)))
 
 
 def _expected_dit_tree(cfg: DiTConfig, leaves: Dict[str, Any]) -> Dict[str, Any]:

@@ -25,6 +25,14 @@ Under a (data, seq) mesh (parallel/sharding.py) `dit_forward` runs on this
 rank's batch rows and keeps its L/seq token slice from the patch embedding
 to the final layer; only self-attention communicates (all-gather KV or ring
 attention over seq), plus one all-gather over seq before unpatchify.
+
+`dit_forward` is differentiable with respect to the parameter dict (the
+trainer, training/train.py): no op on its path writes a leaf in place or
+detaches, and the flash attention takes its gradient through
+ops/flash_attention.FlashAttentionFunction.  Quantized leaves raise under
+autograd, and so does a mesh: the sequence-parallel backward (ring
+attention's, the gradient all-reduce) is not ported (ROADMAP.md queue 1,
+item 7).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from ..ops.norms import adaln_modulation, layer_norm_no_affine, modulate, rms_no
 from ..ops.patch import patch_embed, unpatchify
 from ..ops.rope import apply_rope, rope_3d_angles
 from ..ops.timestep import timestep_embedding
+from ..utils.tree import leaves
 from .quant import dense_maybe_quantized as _dense
 
 Params = Dict[str, Any]
@@ -256,6 +265,13 @@ def dit_forward(
     cos, sin = torch.cos(angles), torch.sin(angles)
     if mesh is not None:  # this rank's tokens, and their rope rows
         from ..parallel.sharding import gather_tokens, token_slice
+
+        if torch.is_grad_enabled() and (tokens.requires_grad or any(
+                t.requires_grad for t in leaves(params))):
+            raise NotImplementedError(
+                "dit_forward under a mesh has no backward yet (the sequence-parallel "
+                "gradient: ring attention's backward and the gradient all-reduce, "
+                "ROADMAP.md queue 1, item 7); train unsharded or run under torch.no_grad()")
 
         attn_backend = _mesh_attention(mesh, attn_backend, x.is_cuda)
         tokens = token_slice(tokens, mesh)

@@ -366,9 +366,16 @@ def _w8a8_plain(x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def dense_maybe_quantized(x: torch.Tensor, w: Any) -> torch.Tensor:
     """x @ w^T for a plain (N, K) weight or a quantized leaf (module
-    docstring: routing, and what each path computes)."""
+    docstring: routing, and what each path computes).  A quantized leaf
+    raises under autograd when x requires grad: neither its int8 codes nor
+    the W8A8 kernel have a gradient."""
     if not is_quantized(w):
         return F.linear(x, w)
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            "a quantized weight (int8 weight-only or W8A8) has no gradient: train the "
+            "bf16 / fp32 parameters (the JAX package cannot train quantized leaves either), "
+            "or run under torch.no_grad()")
     # Convert-time input-space transforms (the weight carries their inverse).
     if "di" in w:
         x = x * w["di"].to(x.dtype)

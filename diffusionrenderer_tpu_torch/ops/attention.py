@@ -5,6 +5,12 @@ Layout is (B, L, H, Dh) throughout; non-causal, no mask.  The backend
 strings keep the JAX package's names: here 'pallas', 'pallas_onlinemax'
 and 'pallas_pv_int8' name the hand-written CUDA flash kernels
 (ops/flash_attention.py).
+
+Under autograd (grad enabled, q, k or v requiring grad) 'pallas' and
+'pallas_onlinemax', and 'auto' where it takes the kernel, go through
+flash_attention's FlashAttentionFunction (kernel 3 forward, plain
+backward); 'pallas_pv_int8' has no gradient and raises; 'xla' and the
+single-KV cross-attention are differentiable PyTorch.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import HEAD_DIMS, flash_attention
+from .flash_attention import HEAD_DIMS, flash_attention, refuse_under_grad
 
 BACKENDS = ("auto", "xla", "pallas", "pallas_onlinemax", "pallas_pv_int8")
 
@@ -41,13 +47,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     online softmax otherwise); 'pallas_onlinemax' forces the online-softmax
     branch; 'pallas_pv_int8' is the int8 QK^T + int8 PV online-softmax
     kernel; 'xla' is the plain path.  On CPU tensors the flash backends run
-    the kernels' plain versions."""
+    the kernels' plain versions.  Under autograd see the module docstring."""
     if backend == "xla":
         return attention_xla(q, k, v)
     if backend not in BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; "
                          f"expected one of {BACKENDS}")
     if backend == "pallas_pv_int8":
+        refuse_under_grad("attention(backend='pallas_pv_int8')", q, k, v)
         return flash_attention(q, k, v, bounded=False, pv_int8=True)
     if backend in ("pallas", "pallas_onlinemax") or _use_pallas(q, k):
         return flash_attention(q, k, v, bounded=backend != "pallas_onlinemax")

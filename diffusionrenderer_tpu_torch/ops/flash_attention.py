@@ -31,6 +31,17 @@ module holds
   `flash_attention_bounded_plain`).  As in JAX, no dispatcher route reaches
   the first: it is called by name.
 
+Under autograd (grad enabled and q, k or v requiring grad) `flash_attention`
+goes through `FlashAttentionFunction` whatever its `bounded` flag (no-shift,
+online and exact softmax are one function up to rounding): the forward is
+kernel 3 (`flash_attention_partial`), whose m and l are the statistics a
+flash backward needs, and the backward is plain PyTorch
+(`flash_attention_backward_plain`), as the JAX package leaves the gradient
+to XLA.  The routes with no gradient (int8 q/k or PV, the bounded shift with
+or without the carried tile, `flash_attention_partial` itself, the launch
+wrappers) raise under autograd rather than return an output cut from the
+graph.  Under `torch.no_grad` / `inference_mode` every route is as before.
+
 `LAUNCHES` counts the launches of the headroom kernel, of the launch that
 holds kernels 1 and 2 ("flash_attention", one per bf16 attention call at
 every head dim) and of kernel 5; `VARIANT_LAUNCHES` those of kernels 3, 6
@@ -312,6 +323,85 @@ def flash_attention_int8_plain(q, k, v, *, pv_int8: bool = False,
     return heads(acc / l).to(q.dtype)
 
 
+def flash_attention_backward_plain(q, k, v, out, m, l, do, *,
+                                   max_chunk_elems: int = 1 << 24):
+    """dq, dk, dv of softmax(q k^T / sqrt(D)) v from the forward's out and
+    its partial statistics m (log2 domain) and l (flash_attention_partial),
+    in fp32, returned in q, k and v's dtypes:
+
+        D_i = sum_d dO * O,  P = exp2(s' - m) / l with s' = q' k^T,
+        dV = P^T dO,  dS = P * (dO V^T - D),
+        dQ = dS K * scale,  dK = dS^T Q * scale  (natural units: the log2 e
+        of s' cancels against d exp2 = ln 2 exp2).
+
+    Walks (batch row, head group, query block) chunks of at most
+    max_chunk_elems scores, so its fp32 transients stay near four times
+    that many floats (256 MiB at the default) at any length."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    heads = max(1, min(h, max_chunk_elems // (lq * lk)))
+    rows = lq if heads > 1 else max(1, min(lq, max_chunk_elems // lk))
+    qs = q_prescale(q)
+    delta = (do.float() * out.float()).sum(dim=-1)  # (B, Lq, H)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for bi in range(b):
+        for h0 in range(0, h, heads):
+            h1 = min(h, h0 + heads)
+            kh = k[bi, :, h0:h1].float().transpose(0, 1)  # (hc, Lk, D)
+            vh = v[bi, :, h0:h1].float().transpose(0, 1)
+            dk_acc = torch.zeros_like(kh)
+            dv_acc = torch.zeros_like(vh)
+            for q0 in range(0, lq, rows):
+                q1 = min(lq, q0 + rows)
+                qc = qs[bi, q0:q1, h0:h1].float().transpose(0, 1)  # (hc, bq, D)
+                p = torch.exp2(torch.bmm(qc, kh.transpose(1, 2))
+                               .sub_(m[bi, h0:h1, q0:q1, None]))
+                p.div_(l[bi, h0:h1, q0:q1, None])
+                doc = do[bi, q0:q1, h0:h1].float().transpose(0, 1)
+                dv_acc.baddbmm_(p.transpose(1, 2), doc)
+                ds = torch.bmm(doc, vh.transpose(1, 2))
+                ds.sub_(delta[bi, q0:q1, h0:h1].transpose(0, 1)[..., None]).mul_(p)
+                del p
+                dq[bi, q0:q1, h0:h1] = torch.bmm(ds, kh).mul_(scale).transpose(0, 1)
+                qn = q[bi, q0:q1, h0:h1].float().transpose(0, 1)
+                dk_acc.baddbmm_(ds.transpose(1, 2), qn, alpha=scale)
+            dk[bi, :, h0:h1] = dk_acc.transpose(0, 1)
+            dv[bi, :, h0:h1] = dv_acc.transpose(0, 1)
+    return dq, dk, dv
+
+
+def _requires_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def refuse_under_grad(route: str, *xs) -> None:
+    """Raise when autograd would record `route` on xs: it has no gradient,
+    and its output would be cut from the graph without a word."""
+    if _requires_grad(*xs):
+        raise RuntimeError(
+            f"{route} has no gradient: under autograd, take flash_attention(bounded=False "
+            f"or True, no int8) or attention(backend='auto' | 'pallas' | "
+            f"'pallas_onlinemax' | 'xla'), or run it under torch.no_grad()")
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """softmax(q k^T / sqrt(D)) v with a gradient: kernel 3 forward on CUDA
+    tensors (its plain version on CPU ones), saving q, k, v, out, m and l;
+    the plain chunked backward (flash_attention_backward_plain)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, m, l = flash_attention_partial(q, k, v)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        return flash_attention_backward_plain(*ctx.saved_tensors, do)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
@@ -389,6 +479,7 @@ def _lib_int8() -> ctypes.CDLL:
 
 
 def _check_kernel_inputs(q, k, v) -> None:
+    refuse_under_grad("a flash attention launch", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash attention takes (B, L, H, D) q, k, v")
     if k.shape != v.shape or q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
@@ -615,10 +706,20 @@ def flash_attention(q, k, v, block_q: Optional[int] = None, block_k: Optional[in
     int8 mode.  block_q never changes the result (rows are independent).
     bounded with pipelined is the bounded softmax shifted by the per-row
     bound (row_bound), with the score tile carried one key tile ahead;
-    pipelined alone is ignored, as in JAX."""
+    pipelined alone is ignored, as in JAX.
+
+    Under autograd (grad enabled, q, k or v requiring grad) the call is
+    FlashAttentionFunction whatever `bounded` says; the int8 and the
+    pipelined bounded modes have no gradient and raise there."""
     if bounded and pv_int8:
         raise ValueError("bounded mode does not compose with int8 (int8 P needs a tight max)")
     int8 = (qk_int8 or pv_int8) and not bounded
+    if _requires_grad(q, k, v):
+        if int8:
+            refuse_under_grad("int8 flash attention (qk_int8 / pv_int8)", q, k, v)
+        if bounded and pipelined:
+            refuse_under_grad("flash_attention(bounded=True, pipelined=True)", q, k, v)
+        return FlashAttentionFunction.apply(q, k, v)
     if q.device.type == "cpu":
         if int8:
             return flash_attention_int8_plain(q, k, v, pv_int8=pv_int8, block_k=block_k)
@@ -642,7 +743,8 @@ def flash_attention_bounded_shift(q, k, v) -> torch.Tensor:
     """The bounded softmax without the carried score tile (JAX's
     _flash_kernel_bounded, which no JAX code path calls): the same function
     as flash_attention(bounded=True, pipelined=True).  Plain version for CPU
-    tensors, kernel 7 for CUDA tensors."""
+    tensors, kernel 7 for CUDA tensors.  No gradient: raises under autograd."""
+    refuse_under_grad("flash_attention_bounded_shift", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bounded_plain(q, k, v)
     q, k, v = _dense(q), _dense(k), _dense(v)
@@ -657,7 +759,11 @@ def flash_attention_partial(q, k, v, block_q: Optional[int] = None,
     domain (q pre-scaled by softmax_scale * log2 e), and l, the normalizer.
     Shards merge exactly with o = out * l and an exp2 online-softmax combine
     (parallel/ring_attention.py).  Plain version for CPU tensors, kernel 3
-    for CUDA tensors; block_q and block_k leave the result unchanged."""
+    for CUDA tensors; block_q and block_k leave the result unchanged.
+    Raises under autograd (no gradient of m and l: ring attention's
+    backward is not ported); FlashAttentionFunction differentiates its
+    output."""
+    refuse_under_grad("flash_attention_partial", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_partial_plain(q, k, v)
     return flash_attention_partial_kernel(_dense(q), _dense(k), _dense(v))

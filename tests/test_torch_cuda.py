@@ -724,3 +724,120 @@ def test_trace_names_the_flash_attention_kernel(cuda, tmp_path):
         names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
     assert any("attention_kernel" in n for n in names), sorted(set(names))[:40]
     assert "drt_attention" in names
+
+
+# ---------------------------------------------------------------------------
+# The trainer on the card: FlashAttentionFunction (kernel 3 forward, plain
+# backward), the refusals, a train step and a resumed loop.
+# ---------------------------------------------------------------------------
+
+def grads_of(fn, q, k, v, do):
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*ts)
+    out.backward(do)
+    return out.detach(), [t.grad for t in ts]
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", [(1, 1024, 1024, 8, 128), (2, 300, 500, 2, 64),
+                                         (1, 777, 256, 3, 128)])
+def test_flash_function_grads_match_fp32_autograd(cuda, b, lq, lk, h, d):
+    """bf16 kernel 3 + the plain backward vs autograd through the plain
+    attention in fp32 on the same inputs: rel L2 <= 1e-2 for dq, dk, dv."""
+    q, k, v = qkv(cuda, b, lq, lk, h, d, seed=lq + lk)
+    do = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(5),
+                     device=cuda).bfloat16()
+    tfa.reset_counts()
+    out, got = grads_of(lambda *t: attention(*t, backend="pallas"), q, k, v, do)
+    assert tfa.VARIANT_LAUNCHES["flash_attention_partial"] == 1
+    assert tfa.LAUNCHES["flash_attention"] == 0
+    want_out, want = grads_of(attention_xla, q.float(), k.float(), v.float(), do.float())
+    assert_close(out, want_out)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        rel = ((g.float() - w).norm() / w.norm()).item()
+        assert math.isfinite(rel) and rel <= 1e-2, rel
+
+
+def test_inference_route_unchanged_under_no_grad(cuda):
+    q, k, v = qkv(cuda, 1, 1024, 1024, 4, 128)
+    want = tfa.flash_attention(q, k, v, bounded=True)
+    tfa.reset_counts()
+    with torch.no_grad():
+        got = tfa.flash_attention(q.requires_grad_(True), k, v, bounded=True)
+    assert tfa.LAUNCHES["flash_attention"] == 1 and tfa.LAUNCHES["flash_attention_headroom"] == 1
+    assert tfa.VARIANT_LAUNCHES["flash_attention_partial"] == 0
+    assert torch.equal(got, want)
+
+
+def test_routes_without_a_gradient_refuse_on_the_card(cuda):
+    q, k, v = qkv(cuda, 1, 256, 256, 2, 128)
+    k.requires_grad_(True)
+    for route in (lambda: tfa.flash_attention(q, k, v, qk_int8=True),
+                  lambda: tfa.flash_attention(q, k, v, pv_int8=True),
+                  lambda: tfa.flash_attention(q, k, v, bounded=True, pipelined=True),
+                  lambda: tfa.flash_attention_bounded_shift(q, k, v),
+                  lambda: tfa.flash_attention_partial(q, k, v),
+                  lambda: tfa.flash_attention_kernel(q, k, v, None),
+                  lambda: attention(q, k, v, backend="pallas_pv_int8")):
+        with pytest.raises(RuntimeError, match="has no gradient"):
+            route()
+
+
+def tiny_train_setup(cuda, grad_accum=1, context_index=(1, 4)):
+    from diffusionrenderer_tpu_torch.training import (init_train_state, make_optimizer,
+                                                      make_train_step)
+
+    cfg = DiTConfig(model_channels=256, num_blocks=2, num_heads=2, adaln_lora_dim=16,
+                    crossattn_emb_channels=64)
+    opt = make_optimizer(3e-3)
+    state = init_train_state(init_dit_params(cfg, device=cuda, dtype=torch.bfloat16, seed=0), opt)
+    step = make_train_step(cfg, opt, condition_drop_rate=0.1, grad_accum=grad_accum)
+
+    def batch_fn(i):
+        g = torch.Generator(cuda).manual_seed(100 + i)
+        b = len(context_index)
+        return {"latents": torch.randn(b, 1, 32, 32, 16, generator=g, device=cuda).bfloat16(),
+                "latent_condition": torch.randn(b, 1, 32, 32, 16, generator=g,
+                                                device=cuda).bfloat16(),
+                "context_index": torch.tensor(context_index, device=cuda)}
+    return cfg, state, step, batch_fn
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_train_step_launches_kernel3_per_microbatch(cuda, grad_accum):
+    from diffusionrenderer_tpu_torch.utils.tree import leaves as tree_leaves
+
+    cfg, state, step, batch_fn = tiny_train_setup(cuda, grad_accum)
+    before = [p.clone() for p in tree_leaves(state.params)]
+    tfa.reset_counts()
+    state, loss = step(state, batch_fn(0), torch.Generator(cuda).manual_seed(0))
+    assert tfa.VARIANT_LAUNCHES["flash_attention_partial"] == cfg.num_blocks * grad_accum
+    assert math.isfinite(float(loss)) and state.step == 1
+    still = sum(torch.equal(a, b) for a, b in zip(before, tree_leaves(state.params)))
+    assert still == 4 * cfg.num_blocks  # the cross-attention's q / k leaves: no gradient
+
+
+# The second case repeats each context index within a microbatch: the
+# backward of the context table's gather sums rows that share an index.
+@pytest.mark.parametrize("grad_accum,context_index", [(1, (1, 4)), (2, (2, 2, 4, 4))],
+                         ids=["b2_accum1", "b4_accum2_repeated_index"])
+def test_train_loop_resume_is_bitwise_on_the_card(cuda, tmp_path, grad_accum, context_index):
+    from diffusionrenderer_tpu_torch.training import train_loop
+    from diffusionrenderer_tpu_torch.utils.tree import leaves as tree_leaves
+
+    cfg, _, step, batch_fn = tiny_train_setup(cuda, grad_accum, context_index)
+
+    def make_state():
+        return tiny_train_setup(cuda)[1]
+
+    def run(path, n):
+        return train_loop(make_state, step, batch_fn, num_steps=n, seed=3,
+                          ckpt_dir=str(path), save_every=2, log_every=0)
+
+    full, losses_full = run(tmp_path / "full", 4)
+    _, head = run(tmp_path / "cut", 2)
+    resumed, tail = run(tmp_path / "cut", 4)
+    assert head + tail == losses_full
+    for a, b in zip(tree_leaves([full.params, full.opt_state.mu, full.opt_state.nu]),
+                    tree_leaves([resumed.params, resumed.opt_state.mu, resumed.opt_state.nu])):
+        assert torch.equal(a, b)

@@ -33,7 +33,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "ops.cuda_build", "sampling.edm", "parallel.sharding",
                 "parallel.ring_attention", "parallel.flash_sp", "envmap", "io",
                 "ops.resample", "utils.cache", "checkpoint_vae", "utils.safetensors",
-                "cli", "serving", "comfy_nodes", "utils.profiling", "utils.metrics"):
+                "cli", "serving", "comfy_nodes", "utils.profiling", "utils.metrics",
+                "training", "training.train", "training.loop"):
         assert f"diffusionrenderer_tpu_torch.{mod}" in report["imported"]
 
 
