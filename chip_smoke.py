@@ -179,6 +179,26 @@ Phases (any failure raises and exits non-zero):
                wall times and the peak; (d) train_loop at 2 blocks, full
                width: 4 steps straight and 2 + resume + 2 bitwise equal, the
                save and restore seconds.
+  31. several ranks on the one card - spawned interpreters (never forked)
+               with a gloo process group each (NCCL takes one rank per card),
+               after phase 2 has built the kernels; each rank joined with its
+               own timeout, and a rank that fails or hangs fails the run.
+               (a) which collectives gloo takes on bf16 and fp32 CUDA tensors
+               (point-to-point crashes the ranks; the port calls none);
+               (b) 4 ranks on make_mesh() = (1, 2, 2), JAX's default:
+               load_pipeline() one rank at a time, shard(mesh) (the DiT's
+               blocks halved per rank), inverse_render of phase 7's image
+               (420 kernel-2 launches on the all-gathered KV + the VAE's 2
+               bounded calls per rank), one DiT forward vs the unsharded
+               kernel path (rel L2 <= 2e-2); then on 2 ranks: (c) W8A8 and
+               W8A8-g128 forwards at tensor = 2 (168 kernel-4 launches per
+               rank at the shard shapes) vs the unsharded W8A8 forward; (d)
+               GPipe, 2 stages of 14 blocks, M = 5, vs the unsharded forward;
+               (e) 4-block full-width train steps at tensor = 2, data = 2 and
+               GPipe S = 2, every leaf's gradient gathered whole vs the fp32
+               plain path (rel L2 <= 5e-2).  Kernel 4 at the shard shapes and
+               kernel 2 at the per-rank attention shapes timed on the card
+               alone.  Times through gloo are host-staged.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -1142,7 +1162,8 @@ def quant_reference_phase(bf16_params):
     # across .5 boundaries at every block matmul: a few 1e-2, the size of
     # the W8A8 quantization noise itself (w8a8_vs_bf16).  A wrong kernel
     # moves the output by O(1).
-    check(rec["kernel_path_vs_plain_path_rel_l2"] <= 0.1, "W8A8 forward: kernel path vs plain")
+    check(rec["kernel_path_vs_plain_path_rel_l2"] <= W8A8_PERTURB_TOL,
+          "W8A8 forward: kernel path vs plain")
     return params, rec
 
 
@@ -3076,6 +3097,664 @@ def train_resume_phase(seed: int = 35):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: several ranks on the one card, over gloo
+# ---------------------------------------------------------------------------
+
+# Each part's ranks write their records here (build/ is not committed);
+# main() removes it.
+MULTI_DIR = os.path.join(ROOT, "build", "chip_smoke_multirank")
+MULTI_RANK_TIMEOUT_S = 420
+PROBE_OPS = ("all_reduce", "all_reduce_max", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "all_to_all_single", "all_to_all_single_one_split", "broadcast",
+             "batch_isend_irecv")
+PROBE_DTYPES = ("bfloat16", "float32")
+# The collectives the port's multi-rank path calls (parallel/collectives.py);
+# point-to-point is not among them.
+PORT_OPS = PROBE_OPS[:-1]
+# Kernel 4 at the tensor = 2 shard shapes of the DiT's W8A8 block matmuls
+# at 5 x 1024 tokens, (M, K, N): fa wq / wk / wv, fa wo, mlp w1, mlp w2.
+QMM_TP_SHAPES = ((5120, 4096, 2048), (5120, 2048, 4096), (5120, 4096, 8192),
+                 (5120, 8192, 4096))
+# Kernel 2 (the online branch, flash_sp on the all-gathered KV) at the
+# per-rank shapes, (B, Lq, Lk, H, D): the (1, 2, 2) render's and the
+# (1, 1, 2) forwards'.
+ATTN_TP_SHAPES = ((5, 512, 1024, 16, 128), (5, 1024, 1024, 16, 128))
+MULTI_FWD_TOL = 2e-2  # phase 16's bound: a sharded forward vs the unsharded one
+# Phase 11's bound for a W8A8 forward under ulp-level perturbations (its
+# kernel path vs plain path): the int8 activation codes move across .5
+# boundaries at every block matmul.
+W8A8_PERTURB_TOL = 0.1
+HOST_STAGED = ("host-staged: gloo carries the CUDA tensors through the host, so these times "
+               "are not speed numbers for a sharded path over NCCL")
+
+
+def _probe_rank(rank, world, start):
+    """Each collective on CUDA tensors, from case `start` on; rank 0 appends
+    one JSON line per case to probe.jsonl.  A rank that crashes ends the
+    spawn; the caller starts the next case in a new one."""
+    import torch
+    import torch.distributed as dist
+
+    cases = [(op, dn) for op in PROBE_OPS for dn in PROBE_DTYPES][start:]
+    for op, dn in cases:
+        dt = getattr(torch, dn)
+
+        def mine(r):
+            return torch.arange(8, device="cuda", dtype=torch.float32).reshape(4, 2) + 10 * r
+
+        x = mine(rank).to(dt)
+        nxt, prv = (rank + 1) % world, (rank - 1) % world
+        try:
+            if op.startswith("all_reduce"):
+                y = x.clone()
+                if op == "all_reduce":
+                    dist.all_reduce(y)
+                    want = sum(mine(r) for r in range(world))
+                else:
+                    dist.all_reduce(y, op=dist.ReduceOp.MAX)
+                    want = mine(world - 1)
+            elif op == "all_gather_into_tensor":
+                y = torch.empty(4 * world, 2, dtype=dt, device="cuda")
+                dist.all_gather_into_tensor(y, x)
+                want = torch.cat([mine(r) for r in range(world)])
+            elif op == "reduce_scatter_tensor":
+                y = torch.empty(4 // world, 2, dtype=dt, device="cuda")
+                dist.reduce_scatter_tensor(y, x)
+                want = sum(mine(r) for r in range(world)).chunk(world)[rank]
+            elif op == "all_to_all_single":
+                y = torch.empty_like(x)
+                dist.all_to_all_single(y, x)
+                want = torch.cat([mine(r).chunk(world)[rank] for r in range(world)])
+            elif op == "all_to_all_single_one_split":  # the port's rotation
+                y = torch.empty_like(x)
+                dist.all_to_all_single(y, x, [4 if r == prv else 0 for r in range(world)],
+                                       [4 if r == nxt else 0 for r in range(world)])
+                want = mine(prv)
+            elif op == "batch_isend_irecv":
+                y = torch.empty_like(x)
+                for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, nxt),
+                                                   dist.P2POp(dist.irecv, y, prv)]):
+                    req.wait()
+                want = mine(prv)
+            else:  # broadcast
+                y = x.clone()
+                dist.broadcast(y, 0)
+                want = mine(0)
+            torch.cuda.synchronize()
+            res = "ok" if torch.equal(y.float(), want.float()) else "wrong values"
+        except RuntimeError as e:
+            res = f"refused: {str(e).splitlines()[0][:160]}"
+        if rank == 0:
+            with open(os.path.join(MULTI_DIR, "probe.jsonl"), "a") as f:
+                f.write(json.dumps({"op": op, "dtype": dn, "result": res}) + "\n")
+        dist.barrier()
+    return {}
+
+
+def _weights_gib(tree) -> float:
+    from diffusionrenderer_tpu_torch.utils.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree) if t is not None) / 2 ** 30
+
+
+def _render_rank(rank, world, _):
+    """(b) JAX's default mesh, make_mesh() -> (1, 2, 2): load_pipeline() at
+    full width, one rank at a time (so the card never holds four whole
+    models), shard(mesh), inverse_render of phase 7's image; one DiT
+    forward on the mesh vs rank 0's unsharded kernel-path forward."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from diffusionrenderer_tpu_torch.api import INVERSE_PASSES, inverse_render, load_pipeline
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+    from diffusionrenderer_tpu_torch.models.dit import dit_forward
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.parallel import make_mesh, token_sharding_constraint
+
+    mesh = make_mesh()
+    shape = tuple(mesh.shape.values())
+    check(shape == (1, 2, 2), f"make_mesh() on 4 ranks gave {shape}, JAX's rule gives (1, 2, 2)")
+    net = get_inverse_renderer_config(512, 512, 1).net
+    x, sigma, cond, ctx = dit_inputs(6)
+    ref = None
+    torch.cuda.reset_peak_memory_stats()
+    for turn in range(world):
+        if turn == rank:
+            t0 = time.perf_counter()
+            pipe = load_pipeline()
+            if rank == 0:
+                with torch.no_grad():
+                    ref = dit_forward(pipe.dit_params, x, sigma, cond, ctx, net)
+                    ref_online = dit_forward(pipe.dit_params, x, sigma, cond, ctx, net,
+                                             attn_backend="pallas_onlinemax")
+            pipe.shard(mesh)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        dist.barrier()
+    rec = {"mesh": shape, "rank": rank, "coords": mesh.coords,
+           "dit_weights_gib": _weights_gib(pipe.dit_params),
+           "vae_weights_gib": _weights_gib(pipe.vae_params), "load_and_shard_s": load_s,
+           "load_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    image = np.random.default_rng(0).integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    out = inverse_render(pipe, image)
+    torch.cuda.synchronize()
+    rec["inverse_render_wall_s_host_staged"] = time.perf_counter() - t0
+    rec["render_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["launches"] = dict(fa.LAUNCHES)
+    rec["branches"] = fa.branch_counts("cuda")
+    rec["timings_s_host_staged"] = dict(pipe.timings)
+    check(sorted(out) == sorted(INVERSE_PASSES), f"passes {sorted(out)}")
+    for name, arr in out.items():
+        check(arr.shape == (1, 512, 512, 3), f"{name} shape {arr.shape}")
+        check(bool(np.isfinite(arr).all()) and arr.min() >= 0.0 and arr.max() <= 1.0,
+              f"{name}: values not finite in [0, 1]")
+    # The DiT's attention on the all-gathered KV (kernel 2, no headroom
+    # launch) once per block and step; the VAE's two bounded calls.
+    dit_calls = pipe.num_steps * net.num_blocks
+    check(rec["launches"]["flash_attention"] == dit_calls + 2
+          and rec["launches"]["flash_attention_headroom"] == 2,
+          f"rank {rank}: attention launches {rec['launches']}, expected {dit_calls} + 2 and 2")
+    with torch.no_grad():
+        got = dit_forward(pipe.dit_params, x, sigma, cond, ctx, net,
+                          seq_sharding_constraint=token_sharding_constraint(mesh))
+    check(bool(torch.isfinite(got).all()), f"rank {rank}: sharded forward not finite")
+    if rank == 0:
+        rec["forward_vs_unsharded_rel_l2"] = rel_l2(got, ref)
+        # The same attention branch as the mesh's (kernel 2, online).
+        rec["forward_vs_unsharded_online_rel_l2"] = rel_l2(got, ref_online)
+        check(rec["forward_vs_unsharded_rel_l2"] <= MULTI_FWD_TOL,
+              f"the (1, 2, 2) forward is {rec['forward_vs_unsharded_rel_l2']:.3g} from the "
+              f"unsharded kernel path (bound {MULTI_FWD_TOL})")
+    say(f"  [rank {rank}] multirank_render " + json.dumps(rec))
+    return rec
+
+
+def _shard_block(bp, mesh):
+    """One block's dict cut to this rank's tensor-parallel shard."""
+    from diffusionrenderer_tpu_torch.parallel import dit_param_shardings, shard_params
+
+    tree = {"blocks": [bp]}
+    return shard_params(tree, dit_param_shardings(tree, mesh))["blocks"][0]
+
+
+def _w8a8_tp_part(rank, x, sigma, cond, ctx, net):
+    """(c) W8A8 and W8A8-g128 forwards at tensor = 2, (1, 1, 2), against
+    rank 0's unsharded forward through the same attention branch (kernel
+    2, online: the mesh's), at 1, 4 and 28 blocks; 'auto' reported beside
+    it.  Rank 0 draws the whole quantized model and then keeps its shard;
+    rank 1 cuts each block as it is drawn.
+
+    Per channel the row-parallel integer sums are added exactly, so the
+    sharded forward is the unsharded one's at every depth (2e-2).  Per
+    group each rank folds its own groups in fp32 and the folds are added:
+    a rounding of the fold's order at one block (2e-2 at depth 1), which
+    the W8A8 activation codes amplify through 28 blocks like any ulp-level
+    perturbation (phase 11's bound for those, W8A8_PERTURB_TOL)."""
+    import functools
+
+    import torch
+    from diffusionrenderer_tpu_torch.models.dit import dit_forward, init_dit_params
+    from diffusionrenderer_tpu_torch.models.quant import is_quantized, quantize_block
+    from diffusionrenderer_tpu_torch.ops import quant_matmul as qm
+    from diffusionrenderer_tpu_torch.parallel import (dit_param_shardings, make_mesh,
+                                                      shard_params, token_sharding_constraint)
+
+    mesh = make_mesh(2, data=1, seq=1, tensor=2)
+    constraint = token_sharding_constraint(mesh)
+    depths = (1, 4, net.num_blocks)
+
+    def upto(p, n):
+        return dict(p, blocks=p["blocks"][:n])
+
+    out = {}
+    for label, group in (("w8a8", None), ("w8a8_g128", 128)):
+        quant = functools.partial(quantize_block, act_quant=True, group_size=group)
+        refs = ref_auto = None
+        if rank == 0:
+            full = init_dit_params(net, device="cuda", dtype=torch.bfloat16, seed=0,
+                                   block_fn=quant)
+            with torch.no_grad():
+                refs = {n: dit_forward(upto(full, n), x, sigma, cond, ctx, net,
+                                       attn_backend="pallas_onlinemax") for n in depths}
+                ref_auto = dit_forward(full, x, sigma, cond, ctx, net)
+            params = shard_params(full, dit_param_shardings(full, mesh))
+            del full
+        else:
+            params = init_dit_params(net, device="cuda", dtype=torch.bfloat16, seed=0,
+                                     block_fn=lambda bp: _shard_block(quant(bp), mesh))
+        torch.cuda.empty_cache()
+        rows = x.shape[0] * x.shape[2] * x.shape[3] // 4  # tokens: 2x2 patches
+        shapes = sorted({(rows, w["q"].shape[1], w["q"].shape[0])
+                         for sub in ("fa", "mlp") for w in params["blocks"][0][sub].values()
+                         if is_quantized(w)})
+        with torch.no_grad():
+            gots = {n: dit_forward(upto(params, n), x, sigma, cond, ctx, net,
+                                   seq_sharding_constraint=constraint) for n in depths[:-1]}
+            qm.reset_counts()
+            t0 = time.perf_counter()
+            gots[depths[-1]] = dit_forward(params, x, sigma, cond, ctx, net,
+                                           seq_sharding_constraint=constraint)
+            torch.cuda.synchronize()
+        got = gots[depths[-1]]
+        rec = {"mesh": (1, 1, 2), "launches": qm.LAUNCHES["quant_matmul_w8a8"],
+               "shard_shapes_mkn": shapes, "weights_gib": _weights_gib(params),
+               "forward_s_host_staged": time.perf_counter() - t0}
+        check(rec["launches"] == 6 * net.num_blocks,
+              f"rank {rank} {label}: {rec['launches']} kernel-4 launches, expected "
+              f"{6 * net.num_blocks}")
+        check(shapes == sorted(QMM_TP_SHAPES), f"rank {rank} {label}: shard shapes {shapes}")
+        check(bool(torch.isfinite(got).all()), f"rank {rank} {label}: forward not finite")
+        if rank == 0:
+            by_depth = {n: rel_l2(gots[n], refs[n]) for n in depths}
+            rec["vs_unsharded_rel_l2_by_depth"] = by_depth
+            rec["vs_unsharded_rel_l2"] = by_depth[depths[-1]]
+            rec["vs_unsharded_auto_rel_l2"] = rel_l2(got, ref_auto)
+            bounds = ({n: MULTI_FWD_TOL for n in depths} if group is None else
+                      {depths[0]: MULTI_FWD_TOL, depths[1]: W8A8_PERTURB_TOL,
+                       depths[-1]: W8A8_PERTURB_TOL})
+            rec["bounds_by_depth"] = bounds
+            for n in depths:
+                check(by_depth[n] <= bounds[n],
+                      f"{label} at tensor = 2, {n} blocks: {by_depth[n]:.3g} from the unsharded "
+                      f"W8A8 forward through the same attention (bound {bounds[n]})")
+        out[label] = rec
+        say(f"  [rank {rank}] multirank_{label} " + json.dumps(
+            {k: v for k, v in rec.items() if k != "shard_shapes_mkn"}))
+        del params, refs, ref_auto, got, gots
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gpipe_part(rank, x, sigma, cond, ctx, net):
+    """(d) GPipe on make_pp_mesh(2): the 28-block DiT, 14 blocks per rank,
+    M = 5, against rank 0's unsharded forward."""
+    import torch
+    from diffusionrenderer_tpu_torch.models.dit import dit_forward, init_dit_params
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.parallel import (make_pp_executor, make_pp_mesh,
+                                                      pp_block_shardings)
+
+    pmesh = make_pp_mesh(2)
+    per = net.num_blocks // 2
+    ref = None
+    if rank == 0:
+        params = init_dit_params(net, device="cuda", dtype=torch.bfloat16, seed=0)
+        with torch.no_grad():
+            ref = dit_forward(params, x, sigma, cond, ctx, net)
+        params["blocks"] = pp_block_shardings(pmesh)(params["blocks"])
+    else:
+        index = iter(range(net.num_blocks))
+        params = init_dit_params(net, device="cuda", dtype=torch.bfloat16, seed=0,
+                                 block_fn=lambda bp: bp if next(index) // per == rank else None)
+    torch.cuda.empty_cache()
+    m = x.shape[0]
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = dit_forward(params, x, sigma, cond, ctx, net,
+                          block_executor=make_pp_executor(pmesh, m))
+    torch.cuda.synchronize()
+    rec = {"stages": 2, "microbatches": m, "blocks_here": sum(b is not None
+                                                              for b in params["blocks"]),
+           "launches": dict(fa.LAUNCHES), "weights_gib": _weights_gib(params),
+           "forward_s_host_staged": time.perf_counter() - t0}
+    # Every tick (M + S - 1 of them, the bubble's included) runs this
+    # stage's blocks, each one bounded attention call.
+    calls = (m + 1) * per
+    check(rec["launches"]["flash_attention"] == calls
+          and rec["launches"]["flash_attention_headroom"] == calls,
+          f"rank {rank} GPipe: launches {rec['launches']}, expected {calls} each")
+    check(bool(torch.isfinite(got).all()), f"rank {rank} GPipe: forward not finite")
+    if rank == 0:
+        rec["vs_unsharded_rel_l2"] = rel_l2(got, ref)
+        check(rec["vs_unsharded_rel_l2"] <= MULTI_FWD_TOL,
+              f"GPipe forward: {rec['vs_unsharded_rel_l2']:.3g} from the unsharded forward")
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _gather_whole(grads, mode, mesh, shardings, nb):
+    """The whole gradient tree on every rank: tensor shards gathered over
+    the tensor group; each GPipe block broadcast from its stage."""
+    import torch.distributed as dist
+    from diffusionrenderer_tpu_torch.parallel.collectives import gather_replicated
+
+    if mode == "tensor2":
+        def whole(g, sh):
+            if isinstance(g, dict):
+                return {k: whole(g[k], sh[k]) for k in g}
+            if isinstance(g, list):
+                return [whole(a, b) for a, b in zip(g, sh)]
+            if g is None or sh.dim is None:
+                return g
+            return gather_replicated(g, mesh.tensor_group, sh.dim)
+
+        return whole(grads, shardings)
+    if mode == "gpipe2":
+        import torch
+
+        per = nb // mesh.pipe
+        template = grads["blocks"][mesh.coords[1] * per]
+        blocks = []
+        for i in range(nb):
+            owner = i // per
+            mine = grads["blocks"][i]
+            block = {}
+            for sub, sp in template.items():
+                block[sub] = {}
+                for name, g in sp.items():
+                    if g is None:  # unused on every stage alike
+                        block[sub][name] = None
+                        continue
+                    t = mine[sub][name] if owner == mesh.coords[1] else torch.empty_like(g)
+                    dist.broadcast(t, src=owner)
+                    block[sub][name] = t
+            blocks.append(block)
+        return dict(grads, blocks=blocks)
+    return grads
+
+
+def _train_part(rank, net):
+    """(e) The sharded train step at full width, 4 blocks: every leaf's
+    gradient of one loss at tensor = 2, data = 2 and GPipe S = 2, gathered
+    whole, against rank 0's unsharded fp32 plain path and its unsharded
+    bf16 kernel path (phase 30(b)'s bound): within the bound of both, or,
+    where the unsharded bf16 path is itself past it from fp32 (at 4 blocks
+    the q / k side of blocks 1-3), of that path; then one AdamW step of
+    make_train_step on each mesh."""
+    import dataclasses
+
+    import torch
+    from diffusionrenderer_tpu_torch.models.dit import init_dit_params
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+    from diffusionrenderer_tpu_torch.parallel import (dit_param_shardings, make_mesh,
+                                                      make_pp_executor, make_pp_mesh,
+                                                      pp_block_shardings, shard_params,
+                                                      token_sharding_constraint)
+    from diffusionrenderer_tpu_torch.training import (edm_loss, init_train_state,
+                                                      make_optimizer, make_train_step)
+    from diffusionrenderer_tpu_torch.training.train import edm_draws
+    from diffusionrenderer_tpu_torch.utils.tree import flatten, leaves, tree_map
+
+    cfg = dataclasses.replace(net, num_blocks=4)
+    batch = _train_inputs(2, 41)
+    draws = edm_draws(torch.Generator("cuda").manual_seed(42), batch["latents"])
+    ref = ref16 = None
+    if rank == 0:
+        # The unsharded fp32 plain path (the bound's reference) and, beside
+        # it, the unsharded bf16 kernel path.
+        p32 = init_dit_params(cfg, device="cuda", dtype=torch.float32, seed=40)
+        _, g32 = _grads(p32, {k: v.float() if v.is_floating_point() else v
+                              for k, v in batch.items()}, draws, cfg, "xla")
+        ref = dict(zip(_leaf_names(p32), g32))
+        del p32, g32
+        p16 = init_dit_params(cfg, device="cuda", dtype=torch.bfloat16, seed=40)
+        _, g16 = _grads(p16, batch, draws, cfg, "auto")
+        ref16 = dict(zip(_leaf_names(p16), g16))
+        del p16, g16
+        torch.cuda.empty_cache()
+    out = {}
+    for mode in ("tensor2", "data2", "gpipe2"):
+        params = init_dit_params(cfg, device="cuda", dtype=torch.bfloat16, seed=40)
+        shardings = None
+        if mode == "gpipe2":
+            mesh = make_pp_mesh(2)
+            params["blocks"] = pp_block_shardings(mesh)(params["blocks"])
+            kw = {"block_executor": make_pp_executor(mesh, 2)}
+        else:
+            mesh = make_mesh(2, data=2 if mode == "data2" else 1, seq=1,
+                             tensor=2 if mode == "tensor2" else 1)
+            shardings = dit_param_shardings(params, mesh)
+            params = shard_params(params, shardings)
+            kw = {"seq_sharding_constraint": token_sharding_constraint(mesh)}
+        torch.cuda.empty_cache()
+        for p in leaves(params):
+            if p is not None:
+                p.requires_grad_(True)
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        loss = edm_loss(params, *batch.values(), None, cfg, condition_drop_rate=0.1,
+                        draws=draws, **kw)
+        loss.backward()
+        torch.cuda.synchronize()
+        rec = {"loss": loss.item(), "fwd_bwd_s_host_staged": time.perf_counter() - t0,
+               "kernel3_launches": fa.VARIANT_LAUNCHES["flash_attention_partial"],
+               "weights_gib": _weights_gib(params)}
+        grads = _gather_whole(tree_map(lambda p: p.grad, params), mode, mesh, shardings,
+                              cfg.num_blocks)
+        for p in leaves(params):
+            if p is not None:
+                p.grad = None
+                p.requires_grad_(False)
+        if rank == 0:
+            flat = flatten(grads, "params")
+            missing = [n for n, g in flat.items() if g is None and not (
+                "/ca/" in n and n.split("/")[-1] in UNUSED_CA)]
+            check(not missing, f"{mode}: leaves without a gradient: {missing}")
+            errs = {n: rel_l2(g, ref[n]) for n, g in flat.items() if g is not None}
+            errs16 = {n: rel_l2(ref16[n], ref[n]) for n in errs}
+            same = {n: rel_l2(g, ref16[n]) for n, g in flat.items() if g is not None}
+            worst = max(errs, key=errs.get)
+            # Where the unsharded bf16 kernel path is itself past the bound
+            # from fp32 (the q / k side of the deeper blocks), the sharded
+            # gradient is held to that path instead.
+            beyond = sorted(n for n in errs if errs16[n] > TRAIN_DIT_GRAD_TOL)
+            rec.update(leaves_with_gradient=len(errs), worst_leaf=worst,
+                       worst_rel_l2=errs[worst], unsharded_bf16_at_worst=errs16[worst],
+                       vs_unsharded_bf16_worst_rel_l2=max(same.values()),
+                       norm_leaves_rel_l2=max(e for n, e in errs.items()
+                                              if n.endswith(("q_norm", "k_norm"))),
+                       unsharded_bf16_beyond_bound=len(beyond),
+                       worst_where_bound_holds=max(
+                           (errs[n] for n in errs if n not in beyond), default=0.0))
+            for n in errs:
+                check(math.isfinite(errs[n]) and same[n] <= TRAIN_DIT_GRAD_TOL
+                      and (n in beyond or errs[n] <= TRAIN_DIT_GRAD_TOL),
+                      f"{mode}: leaf {n} gradient {errs[n]:.3g} from fp32 (the unsharded bf16 "
+                      f"kernel path {errs16[n]:.3g}), {same[n]:.3g} from that path "
+                      f"(bound {TRAIN_DIT_GRAD_TOL})")
+        del grads
+        opt = make_optimizer(1e-4)
+        step = make_train_step(cfg, opt, condition_drop_rate=0.1, **kw)
+        state = init_train_state(params, opt)
+        t0 = time.perf_counter()
+        state, step_loss = step(state, batch, draws=[draws])
+        torch.cuda.synchronize()
+        rec["step_s_host_staged"] = time.perf_counter() - t0
+        rec["step_loss"] = float(step_loss)
+        check(math.isfinite(rec["step_loss"]) and state.step == 1,
+              f"{mode}: train step loss {rec['step_loss']}")
+        say(f"  [rank {rank}] multirank_train_{mode} " + json.dumps(rec))
+        out[mode] = rec
+        del params, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cde_rank(rank, world, _):
+    """(c), (d) and (e) on two ranks."""
+    import torch
+    from diffusionrenderer_tpu_torch.config import get_inverse_renderer_config
+
+    net = get_inverse_renderer_config(512, 512, 1).net
+    x, sigma, cond, ctx = dit_inputs(6)
+    rec = {"w8a8": _w8a8_tp_part(rank, x, sigma, cond, ctx, net)}
+    rec["gpipe"] = _gpipe_part(rank, x, sigma, cond, ctx, net)
+    say(f"  [rank {rank}] multirank_gpipe " + json.dumps(rec["gpipe"]))
+    rec["train"] = _train_part(rank, net)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return rec
+
+
+MULTI_PARTS = {"probe": _probe_rank, "render": _render_rank, "cde": _cde_rank}
+
+
+def _rank_main(rank, world, port, part, arg):
+    """One rank of a phase-31 part: a gloo process group on the card
+    (chosen here: NCCL takes one rank per card), the part, its record."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+    from diffusionrenderer_tpu_torch.parallel import initialize_distributed
+
+    initialize_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
+                           world_size=world, rank=rank)
+    try:
+        rec = MULTI_PARTS[part](rank, world, arg)
+        with open(os.path.join(MULTI_DIR, f"{part}.{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(part, world, arg=None):
+    """Start `world` ranks (spawned interpreters) and join each with its own
+    timeout; returns their exit codes (None: killed after the timeout)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_main, args=(r, world, port, part, arg))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    codes = []
+    try:
+        for p in procs:
+            p.join(MULTI_RANK_TIMEOUT_S)
+            codes.append(None if p.is_alive() else p.exitcode)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    return codes
+
+
+def _run_part(part, world):
+    codes = _spawn(part, world)
+    check(all(c == 0 for c in codes),
+          f"phase 31 {part}: rank exit codes {codes} (None: hung past {MULTI_RANK_TIMEOUT_S} s)")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(MULTI_DIR, f"{part}.{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def probe_part():
+    """(a) Which collectives gloo takes on the card's CUDA tensors."""
+    total = len(PROBE_OPS) * len(PROBE_DTYPES)
+    path = os.path.join(MULTI_DIR, "probe.jsonl")
+    done = 0
+    while done < total:
+        codes = _spawn("probe", 2, done)
+        lines = open(path).read().splitlines() if os.path.exists(path) else []
+        if len(lines) == done:  # the case at `done` took its ranks down
+            op, dn = [(o, d) for o in PROBE_OPS for d in PROBE_DTYPES][done]
+            with open(path, "a") as f:
+                f.write(json.dumps({"op": op, "dtype": dn,
+                                    "result": f"refused: a rank exited with {codes}"}) + "\n")
+        done = len(open(path).read().splitlines())
+    res = {}
+    for line in open(path).read().splitlines():
+        r = json.loads(line)
+        res.setdefault(r["op"], {})[r["dtype"]] = r["result"]
+    return res
+
+
+def tp_kernel_records():
+    """Kernel 4 at the tensor = 2 shard shapes (per channel and g128) and
+    kernel 2 at the per-rank attention shapes, against their plain versions,
+    timed (in this process, on the card alone) beside their bounds and
+    library calls."""
+    import torch
+    from diffusionrenderer_tpu_torch.ops import flash_attention as fa
+
+    qmm = [qmm_case(m, k, n, g, seed=310 + i, timed=True)
+           for i, (m, k, n) in enumerate(QMM_TP_SHAPES) for g in (None, 128)]
+    attn = []
+    for i, shape in enumerate(ATTN_TP_SHAPES):
+        q, k, v = make_qkv(shape, rms_normed=True, seed=320 + i)
+        fa.reset_counts()
+        got = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_attention"]
+        want = fa.flash_attention_plain(q, k, v, bounded=False)
+        err, rel, ok = compare(got, want)
+        rec = {"shape": list(shape), "launches": launches, "max_abs_err": err, "rel_l2": rel,
+               "ms": time_ms(lambda: fa.flash_attention(q, k, v), 20),
+               "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, bounded=False),
+                                   3, 1),
+               "library_ms": sdpa_ms(q, k, v, 20),
+               "library": "F.scaled_dot_product_attention bf16"}
+        rec["bound_ms"], rec["bound_by"] = attention_bound(shape, noshift=False)
+        say("  kernel 2 per-rank " + json.dumps(rec))
+        check(launches == 1 and ok, f"kernel 2 at {shape}: launches {launches}, err {err:.3g} "
+                                    f"rel {rel:.3g}")
+        attn.append(rec)
+    return qmm, attn
+
+
+def multi_rank_phase(card: str):
+    """Phase 31: the multi-device path in several processes on the one card,
+    over gloo (module docstring)."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    os.makedirs(MULTI_DIR)
+    torch.cuda.empty_cache()
+    rec = {"card": card, "timing": HOST_STAGED,
+           "nccl_world_size_above_1": "not run: phase 31's ranks share one card, and NCCL "
+                                      "takes one rank per card"}
+    try:
+        t = time.perf_counter()
+        rec["probe"] = probe_part()
+        say("multirank_probe " + json.dumps(rec["probe"]))
+        refused = [(op, dn) for op in PORT_OPS for dn in PROBE_DTYPES
+                   if rec["probe"][op][dn] != "ok"]
+        check(not refused, f"gloo refused collectives the port calls: {refused}")
+        say(f"  (a) probe: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        rec["render"] = _run_part("render", 4)
+        say(f"  (b) default mesh render: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        cde = _run_part("cde", 2)
+        rec["w8a8"] = [r["w8a8"] for r in cde]
+        rec["gpipe"] = [r["gpipe"] for r in cde]
+        rec["train"] = [r["train"] for r in cde]
+        rec["cde_peak_gib"] = [r["peak_gib"] for r in cde]
+        say(f"  (c)-(e) W8A8, GPipe, train steps: {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    rec["qmm_tp"], rec["attention_tp"] = tp_kernel_records()
+    r0 = rec["render"][0]
+    say("multirank " + json.dumps({
+        "card": card, "timing": HOST_STAGED,
+        "nccl_world_size_above_1": rec["nccl_world_size_above_1"],
+        "render": {k: r0[k] for k in ("dit_weights_gib", "load_peak_gib", "render_peak_gib",
+                                      "inverse_render_wall_s_host_staged",
+                                      "forward_vs_unsharded_rel_l2",
+                                      "forward_vs_unsharded_online_rel_l2")},
+        "render_launches_per_rank": [r["launches"] for r in rec["render"]],
+        "w8a8": {label: {k: v for k, v in rec["w8a8"][0][label].items()
+                         if k != "shard_shapes_mkn"} for label in ("w8a8", "w8a8_g128")},
+        "gpipe": rec["gpipe"][0],
+        "train": {mode: {k: rec["train"][0][mode][k] for k in (
+            "worst_leaf", "worst_rel_l2", "unsharded_bf16_at_worst",
+            "vs_unsharded_bf16_worst_rel_l2", "unsharded_bf16_beyond_bound",
+            "worst_where_bound_holds", "norm_leaves_rel_l2", "kernel3_launches",
+            "fwd_bwd_s_host_staged", "step_s_host_staged")} for mode in rec["train"][0]},
+        "cde_peak_gib": rec["cde_peak_gib"]}))
+    return rec
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "diffusionrenderer_tpu_torch")):
         print("chip_smoke.py runs from the root of a checkout: the package "
@@ -3229,7 +3908,11 @@ def main() -> int:
     t = phase("30 training: attention gradient, 2-block gradients, 7B train steps, resume")
     train = {"attention_grad": train_attention_grad_phase(), "dit_grad": train_dit_grad_phase(),
              "7b": train_7b_phase(), "resume": train_resume_phase()}
-    say(f"  phase 30: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
+    say(f"  phase 30: {time.perf_counter() - t:.1f} s")
+    t = phase("31 several ranks on the card over gloo: probe, JAX's default mesh, W8A8 at "
+              "tensor = 2, GPipe, sharded train steps")
+    multi = multi_rank_phase(card)
+    say(f"  phase 31: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
     kernel3 = next(r for r in records if r["name"] == "flash_attention_partial")
     kernel3["launches_train_steps"] = [s_["kernel3_launches"] for s_ in train["7b"]["steps"]]
     kernel3["launches_train_note"] = ("FADITV2_7B train steps (3 at batch 1, 2 at batch 2 "
@@ -3250,6 +3933,21 @@ def main() -> int:
             "server_dispatch": server["launches"][key]}
     records[3]["launches_surfaces"] = {
         "node_inverse_w8a8": nodes["inverse_w8a8"]["launches"]["quant_matmul_w8a8"]}
+    # Phase 31's ranks (host-staged over gloo): launches per rank and the
+    # kernels at their per-rank shapes.
+    for rec in records[:3]:
+        key = "flash_attention_headroom" if rec["name"] == "flash_attention_headroom" \
+            else "flash_attention"
+        rec["launches_per_rank_default_mesh"] = [r["launches"][key] for r in multi["render"]]
+        rec["launches_per_rank_gpipe"] = [r["launches"][key] for r in multi["gpipe"]]
+    for rec in records[:2]:
+        rec["per_rank_shapes"] = multi["attention_tp"]
+    records[3]["launches_per_rank_tensor_parallel"] = {
+        label: [r[label]["launches"] for r in multi["w8a8"]] for label in ("w8a8", "w8a8_g128")}
+    records[3]["tensor_parallel_shapes"] = multi["qmm_tp"]
+    kernel3["launches_per_rank_sharded_train"] = {
+        mode: [r[mode]["kernel3_launches"] for r in multi["train"]]
+        for mode in ("tensor2", "data2", "gpipe2")}
     say(card)  # again here: the end of a long log is what survives
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

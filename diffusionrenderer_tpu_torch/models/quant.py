@@ -35,6 +35,13 @@ The port's rule:
 The plain W8A8 path sums int8 products exactly (float64), on the CPU and on
 the card: fp32 sums lose exactness above 2^24.
 
+Under tensor parallelism (`dense_maybe_quantized(row_group=)`, the
+row-parallel fa.wo, ca.wo and mlp.w2) each token is quantized with its max
+|x| over the whole K, a max all-reduce over the tensor group; per channel
+the integer sums are added across the group before the scales (the result
+is the unsharded one's, bit for bit), per group each rank's fp32 fold is
+added; plain and weight-only products are summed in fp32 and rounded once.
+
 Weight-only leaves have no kernel in JAX either (XLA fuses the int8 -> bf16
 convert into the matmul read); here they dequantize to x's dtype and call
 F.linear, which materializes a copy of the weight in x's dtype per call.
@@ -56,7 +63,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.quant_matmul import (activation_inv_scale, fma_f32, int_matmul_exact,
-                                quant_matmul_w8a8)
+                                quant_matmul_w8a8, quant_matmul_w8a8_kernel,
+                                quantize_activation_fp32)
+from ..parallel.collectives import all_reduce_max, all_reduce_sum
 
 Params = Dict[str, Any]
 
@@ -332,22 +341,28 @@ def quantize_dit_params(params: Params, act_quant: bool = False,
 # The quantized dense layer
 # ---------------------------------------------------------------------------
 
-def _quantize_activation(x: torch.Tensor):
+def _quantize_activation(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """Per-token symmetric int8 as the JAX package's XLA path does it: the
     quantize multiply runs in x's dtype, and the dequant is the exact
-    inverse of the scale applied.  Returns (x_q int8, dequant fp32 (..., 1))."""
-    amax = x.abs().float().amax(dim=-1, keepdim=True)
+    inverse of the scale applied.  amax: the tokens' max |x| (..., 1) fp32
+    when taken over more than this K.  Returns (x_q int8, dequant fp32
+    (..., 1))."""
+    if amax is None:
+        amax = x.abs().float().amax(dim=-1, keepdim=True)
     inv = activation_inv_scale(amax, x.dtype)
     xq = torch.round(x * inv).clamp_(-127, 127).to(torch.int8)
     return xq, 1.0 / inv.float()
 
 
-def _w8a8_plain(x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+def _w8a8_plain(x: torch.Tensor, w: Dict[str, torch.Tensor],
+                amax: Optional[torch.Tensor] = None,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The XLA path of the JAX package's dense_maybe_quantized, with exact
     integer sums: per channel (y * dequant) * s; grouped, an fp32 fold of
     the per-group integer sums in group order (a fused multiply-add, as XLA
-    compiles it), then * dequant."""
-    xq, dequant = _quantize_activation(x)
+    compiles it), then * dequant.  amax: as _quantize_activation's; the
+    result in out_dtype (x's dtype unless given)."""
+    xq, dequant = _quantize_activation(x, amax)
     lead, k = xq.shape[:-1], xq.shape[-1]
     xq2 = xq.reshape(-1, k)
     s = w["sa"]
@@ -361,16 +376,21 @@ def _w8a8_plain(x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
         y = y.reshape(*lead, -1) * dequant
     else:
         y = int_matmul_exact(xq2, w["q"]).reshape(*lead, -1) * dequant * s
-    return y.to(x.dtype)
+    return y.to(out_dtype or x.dtype)
 
 
-def dense_maybe_quantized(x: torch.Tensor, w: Any) -> torch.Tensor:
+def dense_maybe_quantized(x: torch.Tensor, w: Any, row_group=None) -> torch.Tensor:
     """x @ w^T for a plain (N, K) weight or a quantized leaf (module
     docstring: routing, and what each path computes).  A quantized leaf
     raises under autograd when x requires grad: neither its int8 codes nor
-    the W8A8 kernel have a gradient."""
+    the W8A8 kernel have a gradient.
+
+    row_group: the tensor-parallel group when w is this rank's input columns
+    of a row-parallel weight and x its K / tensor slice; the result is then
+    the product over the whole K, summed over the group (_row_parallel)."""
     if not is_quantized(w):
-        return F.linear(x, w)
+        return F.linear(x, w) if row_group is None else _row_parallel_sum(
+            linear_fp32(x, w), row_group, x.dtype)
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError(
             "a quantized weight (int8 weight-only or W8A8) has no gradient: train the "
@@ -382,10 +402,78 @@ def dense_maybe_quantized(x: torch.Tensor, w: Any) -> torch.Tensor:
     if "hs" in w:
         x = hadamard_rotate(x, w["hs"])
     if "sa" in w:
-        if x.is_cuda and math.prod(x.shape[:-1]) >= KERNEL_MIN_ROWS:
+        if row_group is not None:
+            return _w8a8_row_parallel(x, w, row_group)
+        if _use_kernel(x):
             return quant_matmul_w8a8(x, w["q"], w["sa"])
         return _w8a8_plain(x, w)
-    return F.linear(x, dequantize_tensor(w, x.dtype))
+    wd = dequantize_tensor(w, x.dtype)
+    return F.linear(x, wd) if row_group is None else _row_parallel_sum(
+        linear_fp32(x, wd), row_group, x.dtype)
+
+
+def _use_kernel(x: torch.Tensor) -> bool:
+    return x.is_cuda and math.prod(x.shape[:-1]) >= KERNEL_MIN_ROWS
+
+
+def _row_parallel_sum(part: torch.Tensor, group, dtype: torch.dtype) -> torch.Tensor:
+    """A row-parallel layer's fp32 partial products summed over the group,
+    then rounded to `dtype` once, as XLA sums JAX's fp32 dot before its
+    cast."""
+    return all_reduce_sum(part, group).to(dtype)
+
+
+def _w8a8_row_parallel(x: torch.Tensor, w: Dict[str, torch.Tensor], group) -> torch.Tensor:
+    """A W8A8 row-parallel product summed over the tensor group, as XLA
+    partitions JAX's: each token is quantized with its max |x| over the
+    whole K (a max all-reduce); per channel the integer sums are added
+    across the group before the scales (JAX's int32 dot is summed exactly),
+    which leaves the result the unsharded one's; per group each rank folds
+    its own groups in fp32 and the folds are added."""
+    amax = all_reduce_max(x.abs().amax(dim=-1, keepdim=True).float(), group)
+    q, sa = w["q"], w["sa"]
+    if _is_grouped(w):
+        part = (quant_matmul_w8a8(x, q, sa, amax, torch.float32) if _use_kernel(x)
+                else _w8a8_plain(x, w, amax, torch.float32))
+        return _row_parallel_sum(part, group, x.dtype)
+    lead, k = x.shape[:-1], x.shape[-1]
+    if _use_kernel(x):
+        # The kernel with unit scales writes f32(sum_k xq * q): the integer
+        # sums, exact below 2^24; the scales follow its own order.
+        xq, dq = quantize_activation_fp32(x.reshape(-1, k), amax.reshape(-1, 1))
+        acc = quant_matmul_w8a8_kernel(xq, torch.ones_like(dq), q, torch.ones_like(sa),
+                                       torch.float32)
+        y = (all_reduce_sum(acc, group) * sa) * dq[:, None]
+    else:
+        xq, dequant = _quantize_activation(x, amax)
+        acc = all_reduce_sum(int_matmul_exact(xq.reshape(-1, k), q), group)
+        y = acc.reshape(*lead, -1) * dequant * sa
+    return y.reshape(*lead, -1).to(x.dtype)
+
+
+class _LinearFP32(torch.autograd.Function):
+    """(M, K) x (N, K) -> (M, N) fp32 from bf16 operands: cuBLAS writes its
+    fp32 accumulator.  The backward is the plain one in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ w, g.t() @ x2
+
+
+def linear_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w^T accumulated and returned in fp32, with no rounding to x's
+    dtype (on the CPU the operands are upcast)."""
+    if x.dtype == torch.float32 or not x.is_cuda:
+        return F.linear(x.float(), w.float())
+    y = _LinearFP32.apply(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[0])
 
 
 # ---------------------------------------------------------------------------

@@ -49,10 +49,14 @@ def activation_inv_scale(amax: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     return torch.div(torch.full_like(amax, 127.0), amax.clamp_min(1e-12)).to(dtype)
 
 
-def quantize_activation_fp32(x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activation_fp32(x2: torch.Tensor, amax: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(M, K) activations -> (xq int8 (M, K), dequant fp32 (M,)).  The
-    quantize multiply runs in fp32 (the kernel path's pre-pass)."""
-    amax = x2.abs().amax(dim=-1, keepdim=True).float()  # the max of x's values is exact
+    quantize multiply runs in fp32 (the kernel path's pre-pass).  amax, when
+    given, is each row's max |x| as fp32 (M, 1), taken over more than these
+    K columns (a row-parallel layer's whole K)."""
+    if amax is None:
+        amax = x2.abs().amax(dim=-1, keepdim=True).float()  # the max of x's values is exact
     inv = activation_inv_scale(amax, x2.dtype).float()
     # x * inv promotes to fp32 (an exact upcast of x), with no fp32 copy of x.
     xq = torch.mul(x2, inv).round_().clamp_(-127, 127).to(torch.int8)
@@ -183,15 +187,22 @@ def kernel_occupancy(grouped: bool) -> Dict[str, int]:
                      "threads_per_block"), out))
 
 
-def quant_matmul_w8a8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def quant_matmul_w8a8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                      amax: Optional[torch.Tensor] = None,
+                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Per-token int8 activations x int8 weights.
 
     x: (..., K) activations; wq: (N, K) int8; scale: (N,) per-channel or
-    (G, N) per-group fp32.  Returns (..., N) in x's dtype."""
+    (G, N) per-group fp32; amax: the tokens' max |x| (..., 1) fp32 when it is
+    taken over more than this K (a row-parallel shard), else computed here.
+    Returns (..., N) in out_dtype (x's dtype unless given)."""
     *lead, k = x.shape
-    xq, dequant = quantize_activation_fp32(x.reshape(-1, k))
+    out_dtype = out_dtype or x.dtype
+    x2 = x.reshape(-1, k)
+    xq, dequant = (quantize_activation_fp32(x2) if amax is None
+                   else quantize_activation_fp32(x2, amax.reshape(-1, 1)))
     if x.device.type == "cpu":
-        out = quant_matmul_w8a8_plain(xq, dequant, wq, scale, x.dtype)
+        out = quant_matmul_w8a8_plain(xq, dequant, wq, scale, out_dtype)
     else:
-        out = quant_matmul_w8a8_kernel(xq, dequant, wq, scale.contiguous(), x.dtype)
+        out = quant_matmul_w8a8_kernel(xq, dequant, wq, scale.contiguous(), out_dtype)
     return out.reshape(*lead, wq.shape[0])

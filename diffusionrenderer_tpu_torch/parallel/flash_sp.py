@@ -4,16 +4,20 @@ diffusionrenderer_tpu/parallel/flash_sp.py).
 Every rank holds its token shard of q and all-gathers K and V over seq
 (dist.all_gather_into_tensor, tiled on the token axis), then runs the flash
 kernel on its local (L/seq, L) tile.  Exact, non-causal; batch rows ride
-data.  impl='ring' dispatches to parallel/ring_attention.py instead (KV
-passed around the ring, nothing global ever materialized).
+data, heads ride tensor.  Under autograd the gather's backward
+reduce-scatters dK and dV over seq, and the attention on the gathered KV is
+ops/flash_attention.FlashAttentionFunction (kernel 3 forward on CUDA
+tensors).  impl='ring' dispatches to parallel/ring_attention.py instead (KV
+passed around the ring, nothing global ever materialized; no gradient).
 """
 
 from __future__ import annotations
 
 from ..ops.attention import attention
 from ..ops.flash_attention import flash_attention
+from .collectives import all_gather_kv
 from .ring_attention import ring_attention_local
-from .sharding import Mesh, gather_tokens
+from .sharding import Mesh
 
 
 def make_sp_attention(mesh: Mesh, impl: str = "flash"):
@@ -27,7 +31,7 @@ def make_sp_attention(mesh: Mesh, impl: str = "flash"):
     def local(q, k, v):
         if impl == "ring":
             return ring_attention_local(q, k, v, mesh)
-        return flash_attention(q, gather_tokens(k, mesh), gather_tokens(v, mesh))
+        return flash_attention(q, all_gather_kv(k, mesh.seq_group), all_gather_kv(v, mesh.seq_group))
 
     return local
 
@@ -38,6 +42,7 @@ def make_gathered_attention(mesh: Mesh, backend: str):
     mesh for the string backends ('xla', 'pallas', ...)."""
 
     def local(q, k, v):
-        return attention(q, gather_tokens(k, mesh), gather_tokens(v, mesh), backend=backend)
+        return attention(q, all_gather_kv(k, mesh.seq_group), all_gather_kv(v, mesh.seq_group),
+                         backend=backend)
 
     return local

@@ -3,8 +3,8 @@ axis (counterpart of diffusionrenderer_tpu/parallel/ring_attention.py).
 
 Each rank holds a token shard of q, k and v, computes the partial attention
 of its queries against the KV shard it holds, and passes KV on around the
-ring (dist.batch_isend_irecv to the next rank of its seq group, n - 1
-times), merging the partial states with the online-softmax combine.  No
+ring (one all_to_all_single hop to the next rank of its seq group, n - 1
+times: gloo takes no point-to-point operation on CUDA tensors), merging the partial states with the online-softmax combine.  No
 rank ever holds the full KV or any L x L block.  Exact, non-causal.
 
 The inner block is the partial-stats flash kernel
@@ -12,6 +12,10 @@ The inner block is the partial-stats flash kernel
 impl='xla' uses plain einsum pieces.  All softmax statistics live in the
 log2 domain (the kernel pre-scales q by softmax_scale * log2 e), and the
 merge uses exp2 to match.
+
+It has no gradient: the backward of the partial-stats kernel's m and l is
+not ported (ROADMAP.md queue 1 item 7), so a call under
+autograd raises; the all-gather attention (flash_sp) trains.
 """
 
 from __future__ import annotations
@@ -20,9 +24,9 @@ import math
 from typing import Tuple
 
 import torch
-import torch.distributed as dist
 
 from ..ops.flash_attention import flash_attention_partial
+from .collectives import shift
 from .sharding import Mesh
 
 _LOG2E = math.log2(math.e)
@@ -63,23 +67,20 @@ def _merge(state: State, update: State) -> State:
 
 def _rotate(tensors, mesh: Mesh):
     """Send each tensor to the next rank of the seq ring and receive the
-    previous rank's (one batch of point-to-point operations)."""
-    i = mesh.coords[1]
-    nxt = mesh.seq_ranks[(i + 1) % mesh.seq]
-    prv = mesh.seq_ranks[(i - 1) % mesh.seq]
-    recvs = [torch.empty_like(t) for t in tensors]
-    ops = [dist.P2POp(dist.isend, t.contiguous(), nxt, mesh.seq_group) for t in tensors]
-    ops += [dist.P2POp(dist.irecv, r, prv, mesh.seq_group) for r in recvs]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return recvs
+    previous rank's."""
+    return [shift(t, mesh.seq_group) for t in tensors]
 
 
 def ring_attention_local(q, k, v, mesh: Mesh, impl: str = "auto") -> torch.Tensor:
     """Per-rank body: q, k, v are this rank's (B, L_local, H, D) token
     shards; returns its (B, L_local, H, D) output.  impl: 'flash' (the
     partial-stats kernel's wrapper), 'xla' (plain pieces), or 'auto' (flash
-    for CUDA tensors, xla otherwise)."""
+    for CUDA tensors, xla otherwise).  Raises under autograd."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "ring attention has no gradient yet (the backward of kernel 3's m and l: "
+            "ROADMAP.md queue 1 item 7, ring attention's backward); train with "
+            "attn_backend='flash_sp' or 'auto' (the all-gathered KV)")
     if impl == "auto":
         impl = "flash" if q.is_cuda else "xla"
     if impl == "flash":

@@ -19,10 +19,10 @@ pixel conditions travel channels-first into the VAE.  The random initial
 state comes from seeded torch.Generators; `generate(x_init=...)` takes an
 explicit one instead (the tests inject the same noise into both packages).
 
-`DiffusionRendererPipeline.shard(mesh)` runs generations over a (data, seq)
-mesh of torch.distributed ranks (parallel/sharding.py): batch rows split
-over data when they divide it, DiT tokens over seq, and every rank returns
-the whole result.
+`DiffusionRendererPipeline.shard(mesh)` runs generations over a (data, seq,
+tensor) mesh of torch.distributed ranks (parallel/sharding.py): batch rows
+split over data when they divide it, DiT tokens over seq, the DiT's heads
+and MLP over tensor, and every rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -236,13 +236,26 @@ class DiffusionRendererPipeline:
         self.decode_chunk_frames: Optional[int] = None
 
     def shard(self, mesh, sp_attn: Optional[str] = None) -> "DiffusionRendererPipeline":
-        """Run generations over a (data, seq) mesh (parallel.sharding.make_mesh;
-        every rank builds the same pipeline and calls generate alike).  The
-        parameters stay replicated (the mesh has tensor = 1).  sp_attn
-        overrides the DiT's attention under the mesh: 'auto', 'flash_sp',
-        'ring', or an ops.attention backend run on the all-gathered KV."""
+        """Run generations over a (data, seq, tensor) mesh
+        (parallel.sharding.make_mesh or make_hybrid_mesh; every rank builds
+        the same pipeline and calls generate alike).  With tensor > 1 the
+        DiT's block matmuls are cut to this rank's Megatron shard
+        (parallel.dit_param_shardings) and the whole weights freed; the VAE
+        stays whole on every rank.  sp_attn overrides the DiT's attention
+        under the mesh: 'auto', 'flash_sp', 'ring', or an ops.attention
+        backend run on the all-gathered KV."""
+        from .parallel.sharding import dit_param_shardings, shard_params, vae_param_shardings
+
+        if self.mesh is not None and self.mesh.tensor > 1:
+            raise ValueError("the pipeline's DiT is already cut to a tensor-parallel shard")
         if sp_attn is not None:
             self.sp_attn = sp_attn
+        self.dit_params = shard_params(self.dit_params,
+                                       dit_param_shardings(self.dit_params, mesh))
+        self.vae_params = shard_params(self.vae_params,
+                                       vae_param_shardings(self.vae_params, mesh))
+        if mesh.tensor > 1 and self.device.type == "cuda":
+            torch.cuda.empty_cache()  # the whole weights' blocks, for the other ranks
         self.mesh = mesh
         return self
 

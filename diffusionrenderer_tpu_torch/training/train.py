@@ -34,9 +34,13 @@ What differs from the JAX package, and why:
   single-key collapse removes) gets no gradient here and a zero one in JAX:
   the optimizer treats a missing gradient as zeros, bit for bit.
 
-The mesh-only arguments (`seq_sharding_constraint`, `block_executor`) are
-not ported: passing one raises NotImplementedError (ROADMAP.md queue 1,
-item 7).
+* Under a mesh.  `seq_sharding_constraint`
+  (parallel.token_sharding_constraint(mesh)) and `block_executor`
+  (parallel.make_pp_executor) go to dit_forward as in JAX.  Every rank
+  passes the whole batch and draws the whole batch's randomness from the
+  same generator; the loss is computed whole on every rank, and each
+  rank's gradients of its parameter shards come out whole
+  (models/dit.py), so the optimizer updates every shard on its own rank.
 """
 
 from __future__ import annotations
@@ -116,6 +120,9 @@ class AdamW:
         ms, ns = tree_leaves(state.mu), tree_leaves(state.nu)
         if not len(ps) == len(gs) == len(ms) == len(ns):
             raise ValueError("params, grads and the moments must have one structure")
+        # A None parameter is a block another pipeline stage holds.
+        quads = [q for q in zip(ps, gs, ms, ns) if q[0] is not None]
+        ps, gs, ms, ns = (list(z) for z in zip(*quads)) if quads else ([], [], [], [])
         if any(not p.stride() == m.stride() == n.stride() == (p if g is None else g).stride()
                for p, g, m, n in zip(ps, gs, ms, ns)):
             raise ValueError("each gradient and moment must have its parameter's strides")
@@ -156,13 +163,6 @@ def init_train_state(params: Any, optimizer: AdamW) -> TrainState:
 # Loss and step
 # ---------------------------------------------------------------------------
 
-def _refuse_mesh_args(seq_sharding_constraint, block_executor) -> None:
-    if seq_sharding_constraint is not None or block_executor is not None:
-        raise NotImplementedError(
-            "seq_sharding_constraint and block_executor (sequence- and pipeline-parallel "
-            "training) are not ported yet (ROADMAP.md queue 1, item 7)")
-
-
 def edm_draws(generator: torch.Generator, x0: torch.Tensor) -> EdmDraws:
     """One loss's draws from `generator`, in a fixed order, on x0's device."""
     b, dev = x0.shape[0], generator.device
@@ -191,8 +191,8 @@ def edm_loss(
 ) -> torch.Tensor:
     """x0: (B, T, H, W, C) clean latents (already sigma_data-scaled).  The
     draws come from `generator` unless given as `draws`.  Returns the fp32
-    scalar loss."""
-    _refuse_mesh_args(seq_sharding_constraint, block_executor)
+    scalar loss.  seq_sharding_constraint, block_executor: dit_forward's
+    (the whole batch on every rank)."""
     if draws is None:
         if generator is None:
             raise ValueError("edm_loss needs a torch.Generator or draws=")
@@ -213,7 +213,9 @@ def edm_loss(
         context_index = torch.where(keep, context_index, torch.zeros_like(context_index))
 
     f = dit_forward(params, (x_t * c_in).to(x0.dtype), sigma, latent_condition,
-                    context_index, cfg, attn_backend=attn_backend).float()
+                    context_index, cfg, attn_backend=attn_backend,
+                    seq_sharding_constraint=seq_sharding_constraint,
+                    block_executor=block_executor).float()
     denoised = c_skip * x_t + c_out * f
     weight = (sig ** 2 + sigma_data ** 2) / (sig * sigma_data) ** 2
     return torch.mean(weight * torch.square(denoised - x0.float()))
@@ -237,8 +239,10 @@ def make_train_step(
     microbatches along the batch axis (B must divide evenly), each with its
     own draws (from `generator` in turn, or draws[i]); the summed loss and
     gradients are divided by grad_accum before ONE optimizer update, as the
-    JAX step's scan does.  The loss stays on the device."""
-    _refuse_mesh_args(seq_sharding_constraint, block_executor)
+    JAX step's scan does.  The loss stays on the device.
+    seq_sharding_constraint, block_executor: edm_loss's; under them the
+    state holds this rank's parameter shards (parallel.shard_params,
+    pp_block_shardings), and every rank passes the whole batch."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -253,7 +257,7 @@ def make_train_step(
         params, opt_state = state.params, state.opt_state
         if not donate:
             params, opt_state = _copy(params), _copy(opt_state)
-        leaves = tree_leaves(params)
+        leaves = [t for t in tree_leaves(params) if t is not None]
         if any(not t.is_floating_point() for t in leaves):
             raise RuntimeError("the parameters hold int8 (quantized) leaves, which have no "
                                "gradient: train the bf16 / fp32 model")
@@ -268,6 +272,8 @@ def make_train_step(
                 loss = edm_loss(params, micro["latents"], micro["latent_condition"],
                                 micro["context_index"], generator, cfg, sigma_data=sigma_data,
                                 condition_drop_rate=condition_drop_rate,
+                                seq_sharding_constraint=seq_sharding_constraint,
+                                block_executor=block_executor,
                                 draws=None if draws is None else draws[i])
                 loss.backward()
                 loss = loss.detach()

@@ -16,7 +16,10 @@ def leaves(tree: Any) -> List[Any]:
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
-    """fn over the leaves, keeping the structure (named tuples included)."""
+    """fn over the leaves, keeping the structure (named tuples included); a
+    None stays None (a block another pipeline stage holds)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -19,9 +19,11 @@ joined with its own timeout.  Covered, in fp32:
   within 1 uint8 count (tests/test_sharding.py:151-181);
 * the 5-pass inverse_render(batch_passes=True) with its rows on a data=5
   mesh against the unsharded port: within 1.5/255
-  (tests/test_sharding.py:183-224);
-* a mesh whose factor rule gives tensor > 1 raises NotImplementedError
-  naming its ROADMAP item.
+  (tests/test_sharding.py:183-224).
+
+The tensor axis, GPipe and the sharded train step are held in
+test_torch_tensor_parallel.py, test_torch_pipeline_parallel.py and
+test_torch_sharded_train.py.
 
 Point-to-point rotation and all-gather at world size > 1 are checked here
 only: the card's run has one rank.
@@ -161,11 +163,6 @@ def test_sharded_dit_forward_matches_jax_sharded(mesh_runs, dit_inputs, backend)
         want = np.asarray(fwd(params, jax.device_put(d["x"], bs), d["sigma"],
                               jax.device_put(d["cond"], bs), d["ctx"]))
     np.testing.assert_allclose(mesh_runs[2, 2][f"dit_{backend}"], want, rtol=1e-4, atol=1e-5)
-
-
-def test_tensor_parallel_mesh_is_refused(mesh_runs):
-    msg = mesh_runs[1, 4]["tensor_refusal"]
-    assert "ROADMAP.md" in msg and "tensor" in msg
 
 
 def test_mesh_factor_rule_matches_jax():
