@@ -13,9 +13,9 @@ Phases (any failure raises and exits non-zero):
                HDR codec (csrc/*.cc, host compiler, zlib); print ptxas's
                registers and spills, and the registers, spills, dynamic shared
                memory and resident blocks per SM of the launch holding kernels
-               1 and 2 (D = 64, 128, 256, 512), kernels 3, 6 and 7 (D = 64,
-               128), kernel 5 (D = 128, 256) and kernel 4 (per channel,
-               grouped) from the CUDA runtime.  Fails on a spill or a
+               1 and 2 and of kernels 6 and 7 (D = 64, 128, 256, 512), kernel 3
+               (D = 64, 128), kernel 5 (D = 128, 256) and kernel 4 (per
+               channel, grouped) from the CUDA runtime.  Fails on a spill or a
                serialized wgmma in the wgmma kernels, and if one of them keeps
                fewer than 8 warps per SM resident.
   3. kernels - the bf16 attention kernels vs their plain PyTorch version,
@@ -66,11 +66,15 @@ Phases (any failure raises and exits non-zero):
   14. kernels 3, 6 and 7 vs their plain versions: the partial-stats kernel
                (out, m and l) and the two bounded-shift kernels at the DiT,
                forward and 9-frame shapes, D = 64, ragged lengths, fewer keys
-               than one tile, the VAE's D=512 and fp32's underflow band;
-               kernel 6 bitwise against kernel 7 at every head dim (one
-               wgmma body at D = 64, 128, one mma.sync body at 512); kernel
-               3's output bitwise against the unbounded call at D = 64, 128
-               (kernel 2's online body).
+               than one tile, the VAE's D=512 at its encode and decode shapes,
+               D = 256 at (2, 1024, 8, 256) and ragged, and fp32's underflow
+               band; kernel 6 bitwise against kernel 7 at every head dim (the
+               wgmma bodies; at D = 256, 512 one schedule), each case's key
+               split (kernels 6 and 7 at D = 256, 512 where pairs of
+               half-length blocks take fewer waves) as expected, and the
+               unsplit launch against the plain version where it splits;
+               kernel 3's output bitwise against the
+               unbounded call at D = 64, 128 (kernel 2's online body).
   15. ring merge on one card - the flagship shape's keys in 4 shards,
                kernel 3 on each, merged by the ring's _merge and normalized,
                against kernel 2's exact attention over all keys.
@@ -87,9 +91,11 @@ Phases (any failure raises and exits non-zero):
                (kernel 6, 28 launches) and one with
                flash_attention_bounded_shift (kernel 7): bitwise equal to each
                other, and within bf16 noise of the kernel path's forward.
-  18. timings of kernels 3, 6 and 7 at the DiT and flagship shapes, and
-               on their mma.sync body at the VAE's encode shape and at D =
-               256, beside kernel 2 and their yardsticks.
+  18. timings of kernels 3, 6 and 7 at the DiT and flagship shapes and at
+               the wide heads (the VAE's encode, decode and flagship shapes
+               at D = 512, (2, 1024, 8, 256)), beside kernel 2, kernel 1's
+               wide-head launch and their yardsticks; kernels 6 and 7 also
+               with the key split forced on and off.
   19. kernel 5 at head dims 512 and 256 (the VAE's (1|5, 4096, 1, 512), a
                ragged D=512 length, (2, 1024, 8, 256)), qk8 and qk8+pv8: vs its
                plain version at the kernel's key tile and vs attention_xla;
@@ -231,6 +237,8 @@ FLAGSHIP_SHAPE = (1, 28160, 28160, 32, 128)
 # The flagship's VAE mid-block attention: 57 frames at 704x1280 are 8 latent
 # frames of 88 x 160 tokens, one head of 512.
 FLAGSHIP_VAE_SHAPE = (8, 14080, 14080, 1, 512)
+# D = 256 at 8 heads, the wide head dim no model of the repo has.
+D256_SHAPE = (2, 1024, 1024, 8, 256)
 # The forward render's DiT attention: one 512x512 frame, and a 9-frame clip
 # (2 latent frames); its VAE attention is VAE_ENC_SHAPE (8 encodes, 1 decode).
 FWD_DIT_SHAPE = (1, 1024, 1024, 32, 128)
@@ -446,14 +454,15 @@ def build_phase():
             spills = [m.group(0) for m in re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
                       if m.group(1) != "0" or m.group(2) != "0"]
             check(not spills, f"{name}.cu: ptxas reports spills: {spills}")
-    # The launch holding kernels 1 and 2 (the wide-head body at D = 256,
-    # 512), kernels 3, 6 and 7, kernel 5, kernel 4: all on wgmma.
-    occ = {f"kernel12_attention_d{d}": fa.kernel_occupancy("attention", d)
-           for d in (64, 128, 256, 512)}
-    for d in (64, 128):
-        occ[f"kernel3_partial_d{d}"] = fa.kernel_occupancy("partial", d)
+    # The launch holding kernels 1 and 2 and kernels 6 and 7 (the wide-head
+    # body at D = 256, 512), kernel 3, kernel 5, kernel 4: all on wgmma.
+    occ = {}
+    for d in (64, 128, 256, 512):
+        occ[f"kernel12_attention_d{d}"] = fa.kernel_occupancy("attention", d)
         occ[f"kernel6_bounded_pipe_d{d}"] = fa.kernel_occupancy("bounded_pipe", d)
         occ[f"kernel7_bounded_d{d}"] = fa.kernel_occupancy("bounded", d)
+    for d in fa.PARTIAL_WGMMA_HEAD_DIMS:
+        occ[f"kernel3_partial_d{d}"] = fa.kernel_occupancy("partial", d)
     occ["kernel4_w8a8_per_channel"] = qm.kernel_occupancy(False)
     occ["kernel4_w8a8_grouped"] = qm.kernel_occupancy(True)
     for d in (128, 256):
@@ -1239,7 +1248,7 @@ def attention_timings(shape, normed: bool, reps: int, two_heads: bool = False):
            "library_queued_ms": queued_ms(sdpa, reps),
            "call_host_us": host_us(call, 20 if two_heads else 200),
            "online_call_host_us": host_us(online, 20 if two_heads else 200)}
-    if shape[4] in fa.WGMMA_HEAD_DIMS:
+    if shape[4] <= 128:  # kernel 6 at the wide heads: phase 18
         mb = fa.row_bound(q, k)
         pipe = lambda: fa.flash_attention_bounded_kernel(q, k, v, mb, pipelined=True)  # noqa: E731
         rec.update({"kernel6_ms": time_ms(pipe, reps), "kernel6_queued_ms": queued_ms(pipe, reps),
@@ -1399,13 +1408,16 @@ def bounded_bound(shape):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def variant_case(name, shape, *, rms_normed=True, seed=0, inputs=None):
+def variant_case(name, shape, *, rms_normed=True, seed=0, inputs=None, split=False):
     """Kernels 3, 6 and 7 vs their plain versions on one input (make_qkv's,
-    or `inputs`); kernel 6 bitwise against kernel 7 (one wgmma body at D =
-    64 and 128, one mma.sync body at 256 and 512: the same operations in the
-    same order per tile); at D = 64 and 128 kernel 3's output bitwise
-    against the unbounded call (kernel 2's online body).  Returns the case's
-    record."""
+    or `inputs`); kernel 6 bitwise against kernel 7 (the wgmma bodies: at D
+    = 64 and 128 l summed in key order and PV issued in k16 order whatever
+    the tile, at 256 and 512 one schedule); `split`: whether kernels 6 and 7
+    split the keys over 2-block clusters here (D = 256, 512, where that
+    saves waves),
+    and where they do, the unsplit launch also against the plain version;
+    at D = 64 and 128 kernel 3's output bitwise against the unbounded call
+    (kernel 2's online body).  Returns the case's record."""
     import torch
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
 
@@ -1418,13 +1430,21 @@ def variant_case(name, shape, *, rms_normed=True, seed=0, inputs=None):
     launches = {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES}
     branches = fa.branch_counts("cuda")
     rec = {"case": name, "shape": list(shape), "launches": launches, "branches": branches,
-           "kernel6_bitwise_kernel7": bool(torch.equal(pipe, shift))}
+           "kernel6_bitwise_kernel7": bool(torch.equal(pipe, shift)),
+           "key_split": {"kernel6": fa.bounded_key_split(q, k, pipelined=True),
+                         "kernel7": fa.bounded_key_split(q, k, pipelined=False)}}
     oks = {}
     bounded_plain = fa.flash_attention_bounded_plain(q, k, v)
-    for key, got, want in zip(("partial_out", "partial_m", "partial_l", "bounded", "kernel6",
-                               "kernel6_vs_kernel7"), (out, m, l, shift, pipe, pipe),
-                              (*fa.flash_attention_partial_plain(q, k, v), bounded_plain,
-                               bounded_plain, shift)):
+    keys = ["partial_out", "partial_m", "partial_l", "bounded", "kernel6", "kernel6_vs_kernel7"]
+    gots = [out, m, l, shift, pipe, pipe]
+    wants = [*fa.flash_attention_partial_plain(q, k, v), bounded_plain, bounded_plain, shift]
+    if split:
+        mb = fa.row_bound(q, k)
+        keys += ["kernel6_unsplit", "kernel7_unsplit"]
+        gots += [fa.flash_attention_bounded_kernel(q, k, v, mb, pipelined=p, key_split=False)
+                 for p in (True, False)]
+        wants += [bounded_plain, bounded_plain]
+    for key, got, want in zip(keys, gots, wants):
         err, rel, oks[key] = compare(got, want)
         rec[key] = {"max_abs_err": err, "tol": MAX_TOL * want.float().abs().max().item(),
                     "rel_l2": rel}
@@ -1436,7 +1456,9 @@ def variant_case(name, shape, *, rms_normed=True, seed=0, inputs=None):
                        "flash_attention_bounded_pipe": 1, "flash_attention_bounded": 1},
           f"{name}: launch counters wrong")
     check(branches == {"noshift": 0, "online": 0}, f"{name}: the branch tally moved")
-    if shape[-1] in fa.WGMMA_HEAD_DIMS:
+    check(rec["key_split"] == {"kernel6": split, "kernel7": split},
+          f"{name}: key split {rec['key_split']}, expected {split}")
+    if shape[-1] in fa.PARTIAL_WGMMA_HEAD_DIMS:
         rec["partial_bitwise_online"] = bool(torch.equal(out, fa.flash_attention(q, k, v)))
         check(rec["partial_bitwise_online"],
               f"{name}: kernel 3's output is not bitwise the unbounded call's")
@@ -1448,15 +1470,21 @@ def variants_phase():
             variant_case("forward_dit", FWD_DIT_SHAPE, seed=56),
             variant_case("forward_dit_9_frames", FWD9_DIT_SHAPE, seed=57),
             variant_case("dit_d64", (5, 1024, 1024, 32, 64), seed=58),
-            variant_case("vae_d512", VAE_ENC_SHAPE, rms_normed=False, seed=51),
+            variant_case("vae_d512", VAE_ENC_SHAPE, rms_normed=False, seed=51, split=True),
+            variant_case("vae_decode_d512", VAE_DEC_SHAPE, rms_normed=False, seed=62,
+                         split=True),
+            variant_case("d256", D256_SHAPE, seed=63),
+            variant_case("ragged_d256", (1, 1000, 777, 2, 256), seed=64, split=True),
+            variant_case("short_keys_d512", (2, 300, 20, 1, 512), rms_normed=False, seed=65),
             variant_case("ragged", (2, 1000, 777, 8, 128), seed=52),
             variant_case("ragged_d64", (3, 777, 1000, 16, 64), seed=59),
             variant_case("short_keys", (2, 300, 40, 8, 128), seed=60),
             variant_case("short_keys_d64", (2, 70, 100, 4, 64), seed=61),
-            variant_case("ragged_d512", (1, 1000, 1200, 1, 512), rms_normed=False, seed=53),
+            variant_case("ragged_d512", (1, 1000, 1200, 1, 512), rms_normed=False, seed=53,
+                         split=True),
             variant_case("underflow_band", (1, 256, 256, 2, 64), inputs=bounded_band_qkv())]
-    keys = ("partial_out", "partial_m", "partial_l", "bounded", "kernel6", "kernel6_vs_kernel7")
-    return max(max(r[k]["max_abs_err"] for k in keys) for r in recs), recs
+    return max(max(v["max_abs_err"] for v in r.values() if isinstance(v, dict)
+                   and "max_abs_err" in v) for r in recs), recs
 
 
 def ring_merge_phase(shards: int = 4):
@@ -1628,17 +1656,22 @@ def bounded_forward_phase(params):
     return rec
 
 
-# Kernels 3, 6 and 7 at the wide heads, on the mma.sync body no path
-# launches: the VAE's encode shape and D = 256 at 8 heads.
-WIDE_VARIANT_SHAPES = (("vae_d512", VAE_ENC_SHAPE, 5), ("d256", (2, 1024, 1024, 8, 256), 10))
+# Kernels 3, 6 and 7 at the wide heads (kernels 6 and 7 on the wide wgmma
+# body, kernel 3 on mma.sync; no path launches them): the VAE's encode,
+# decode and flagship shapes at D = 512 and D = 256 at 8 heads; reps each.
+WIDE_VARIANT_SHAPES = (("vae_encode_d512", VAE_ENC_SHAPE, 20), ("vae_decode_d512", VAE_DEC_SHAPE, 10),
+                       ("flagship_vae_d512", FLAGSHIP_VAE_SHAPE, 3), ("d256", D256_SHAPE, 20))
 
 
 def variant_timings_phase():
     """Kernels 3, 6 and 7 (and kernel 2) at the DiT and flagship shapes and
     at WIDE_VARIANT_SHAPES, their plain versions (2 heads at the flagship
-    shape), the row bound's pre-pass, and the yardsticks:
-    aten._scaled_dot_product_flash_attention (output with its log-sum-exp)
-    for kernel 3, F.scaled_dot_product_attention for kernels 6 and 7."""
+    shape, the first batch row at the flagship VAE's), the row bound's
+    pre-pass, and the yardsticks: aten._scaled_dot_product_flash_attention
+    (output with its log-sum-exp) for kernel 3, F.scaled_dot_product_attention
+    for kernels 6 and 7.  At the wide heads also kernel 1's launch (the
+    headroom rule picks no-shift on these inputs), and kernels 6 and 7 with
+    the key split forced on and off."""
     import torch
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
 
@@ -1648,12 +1681,12 @@ def variant_timings_phase():
         q, k, v = make_qkv(shape, rms_normed=True, seed=55)
         mb = fa.row_bound(q, k)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        bounded = lambda pipelined, split=None: fa.flash_attention_bounded_kernel(  # noqa: E731
+            q, k, v, mb, pipelined=pipelined, key_split=split)
         rec = {"shape": list(shape),
                "kernel3_ms": time_ms(lambda: fa.flash_attention_partial_kernel(q, k, v), reps),
-               "kernel6_ms": time_ms(lambda: fa.flash_attention_bounded_kernel(
-                   q, k, v, mb, pipelined=True), reps),
-               "kernel7_ms": time_ms(lambda: fa.flash_attention_bounded_kernel(
-                   q, k, v, mb, pipelined=False), reps),
+               "kernel6_ms": time_ms(lambda: bounded(True), reps),
+               "kernel7_ms": time_ms(lambda: bounded(False), reps),
                "kernel2_ms": time_ms(lambda: fa.flash_attention_kernel(q, k, v, None), reps),
                "row_bound_ms": time_ms(lambda: fa.row_bound(q, k), reps),
                # PyTorch's flash kernel (output and log-sum-exp) takes D <= 256.
@@ -1663,24 +1696,45 @@ def variant_timings_phase():
                "library_ms": sdpa_ms(q, k, v, reps)}
         rec["kernel3_bound_ms"], rec["kernel3_bound_by"] = partial_bound(shape)
         rec["bounded_bound_ms"], rec["bounded_bound_by"] = bounded_bound(shape)
-        if label != "flagship":
-            rec["kernel3_plain_ms"] = time_ms(lambda: fa.flash_attention_partial_plain(q, k, v),
-                                              2, warmup=1)
-            rec["bounded_plain_ms"] = time_ms(lambda: fa.flash_attention_bounded_plain(q, k, v),
-                                              2, warmup=1)
-        else:
+        if shape[-1] > 128:
+            stats = fa.flash_headroom(q, k, v)
+            rec["kernel1_branch"] = ("noshift" if bool(fa.use_noshift(stats, shape[0] * shape[3],
+                                                                       shape[2], shape[4]))
+                                     else "online")
+            rec["kernel1_ms"] = time_ms(lambda: fa.flash_attention_kernel(q, k, v, stats), reps)
+            rec["key_split"] = fa.bounded_key_split(q, k)
+            for key, pipelined in (("kernel6", True), ("kernel7", False)):
+                for mode, split in (("split", True), ("unsplit", False)):
+                    rec[f"{key}_{mode}_ms"] = time_ms(lambda: bounded(pipelined, split), reps)
+            del stats
+        if label == "flagship":
             q2, k2, v2 = (x[:, :, :2].contiguous() for x in (q, k, v))
             rec["kernel3_plain_ms_2_heads"] = time_ms(
                 lambda: fa.flash_attention_partial_plain(q2, k2, v2), 1, warmup=0)
             rec["bounded_plain_ms_2_heads"] = time_ms(
                 lambda: fa.flash_attention_bounded_plain(q2, k2, v2), 1, warmup=0)
             del q2, k2, v2
+        elif label == "flagship_vae_d512":
+            q1, k1, v1 = (x[:1].contiguous() for x in (q, k, v))
+            rec["kernel3_plain_ms_1_row"] = time_ms(
+                lambda: fa.flash_attention_partial_plain(q1, k1, v1), 1, warmup=0)
+            rec["bounded_plain_ms_1_row"] = time_ms(
+                lambda: fa.flash_attention_bounded_plain(q1, k1, v1), 1, warmup=0)
+            del q1, k1, v1
+        else:
+            rec["kernel3_plain_ms"] = time_ms(lambda: fa.flash_attention_partial_plain(q, k, v),
+                                              2, warmup=1)
+            rec["bounded_plain_ms"] = time_ms(lambda: fa.flash_attention_bounded_plain(q, k, v),
+                                              2, warmup=1)
         b, lq, lk, h, d = shape
         for key in ("kernel3", "kernel6", "kernel7", "kernel2"):
             rec[f"{key}_tflops"] = 4 * b * lq * lk * h * d / rec[f"{key}_ms"] / 1e9
         rec["kernel3_vs_library"] = (rec["kernel3_ms"] / rec["library_lse_ms"]
                                      if rec["library_lse_ms"] else None)
         rec["kernel3_share_of_bound"] = rec["kernel3_bound_ms"] / rec["kernel3_ms"]
+        for key in ("kernel6", "kernel7"):
+            rec[f"{key}_vs_library"] = rec[f"{key}_ms"] / rec["library_ms"]
+            rec[f"{key}_share_of_bound"] = rec["bounded_bound_ms"] / rec[f"{key}_ms"]
         say(f"  variant timings {label} " + json.dumps(rec))
         recs[label] = rec
         del q, k, v, mb, qt, kt, vt
@@ -1690,22 +1744,39 @@ def variant_timings_phase():
 
 def variant_records(var, occ, kernel6_shapes):
     """Rows 3, 6 and 7 of the kernel table: the DiT shape's numbers, the
-    flagship's beside them; kernel 6 also at phase 23's shapes."""
-    src = "diffusionrenderer_tpu_torch/csrc/flash_attention.cu"
+    flagship's beside them, and the wide heads' (kernel 3 on mma.sync,
+    kernels 6 and 7 on the wide wgmma body beside kernel 1's launch there);
+    kernel 6 also at phase 23's shapes."""
+    src = "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu"
     dit, flag = var["timings"]["dit"], var["timings"]["flagship"]
     sharded = var["sharded"]
     common = {"route": "cuda", "source": src, "max_abs_err": var["max_err"],
               "shape": list(DIT_SHAPE)}
 
-    def wide(key, bound):  # the mma.sync body at D = 256, 512
-        return {label: {k: var["timings"][label][k] for k in
-                        ("shape", f"{key}_ms", bound, "library_ms", "library_lse_ms")}
+    def wide(*keys):
+        return {label: {k: var["timings"][label][k] for k in ("shape", *keys, "library_ms")
+                        if k in var["timings"][label]}
                 for label, _, _ in WIDE_VARIANT_SHAPES}
+
+    def bounded_wide(key):  # kernels 6 and 7 on attend_wide
+        mode = "kBoundedPipe" if key == "kernel6" else "kBounded"
+        counter = "flash_attention_bounded_pipe" if key == "kernel6" else "flash_attention_bounded"
+        # Phase 14's public calls (flash_attention(bounded=True, pipelined=True),
+        # flash_attention_bounded_shift), the counters reset before each case.
+        wide_cases = [c for c in var["cases"] if c["shape"][-1] > 128]
+        return {"source": f"{src} bounded_kernel_wide<D, {mode}> (attend_wide)",
+                "by_shape": wide(f"{key}_ms", f"{key}_split_ms", f"{key}_unsplit_ms", "key_split",
+                                 "bounded_bound_ms", "bounded_bound_by", "bounded_plain_ms",
+                                 "bounded_plain_ms_1_row", "kernel1_ms", "kernel1_branch",
+                                 f"{key}_vs_library"),
+                "launches_phase_14": {c["case"]: c["launches"][counter] for c in wide_cases},
+                "key_split_phase_14": {c["case"]: c["key_split"][key] for c in wide_cases},
+                "earlier": "PERF.md section 6 (the times of the mma.sync body this replaced)"}
+
     return [
         {"name": "flash_attention_partial", **common,
-         "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu partial_kernel<D> "
-                   "(attend<D, kPartial>, kernel 2's online body)",
-         "source_d256_d512": src + " attend<D, kPartial>",
+         "source": src + " partial_kernel<D> (attend<D, kPartial>, kernel 2's online body)",
+         "source_d256_d512": "diffusionrenderer_tpu_torch/csrc/flash_attention.cu attend<D>",
          "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:121 (_flash_kernel_partial) "
                      "and :384 (_flash_kernel_partial_bias), via flash_attention_partial :766",
          "launches": sharded["launches"]["flash_attention_partial"],
@@ -1720,11 +1791,10 @@ def variant_records(var, occ, kernel6_shapes):
          "flagship": {k: flag[k] for k in ("kernel3_ms", "kernel3_bound_ms", "library_lse_ms",
                                            "kernel3_plain_ms_2_heads", "kernel2_ms",
                                            "kernel3_vs_library")},
-         "mma_sync_d256_d512": wide("kernel3", "kernel3_bound_ms")},
+         "mma_sync_d256_d512": wide("kernel3_ms", "kernel3_bound_ms", "kernel3_plain_ms",
+                                    "kernel3_plain_ms_1_row", "library_lse_ms")},
         {"name": "flash_attention_bounded_pipe", **common,
-         "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu "
-                   "bounded_kernel<D, kBoundedPipe>",
-         "source_d256_d512": src + " attend<D, kBoundedPipe>",
+         "source": src + " bounded_kernel<D, kBoundedPipe> (D = 64, 128)",
          "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:262 (_flash_kernel_bounded_pipe)",
          "launches": var["bounded_forward"]["kernel6_launches"],
          "launches_path": "dit_forward(attn_backend=flash_attention(bounded=True, pipelined=True))",
@@ -1734,12 +1804,11 @@ def variant_records(var, occ, kernel6_shapes):
          "row_bound_prepass_ms": dit["row_bound_ms"],
          "flagship": {k: flag[k] for k in ("kernel6_ms", "bounded_bound_ms", "library_ms",
                                            "bounded_plain_ms_2_heads", "row_bound_ms")},
-         "mma_sync_d256_d512": wide("kernel6", "bounded_bound_ms"),
-         "occupancy_d128": occ["kernel6_bounded_pipe_d128"], "main_path_shapes": kernel6_shapes},
+         "wide_d256_d512": bounded_wide("kernel6"),
+         "occupancy_d128": occ["kernel6_bounded_pipe_d128"],
+         "occupancy_d512": occ["kernel6_bounded_pipe_d512"], "main_path_shapes": kernel6_shapes},
         {"name": "flash_attention_bounded", **common,
-         "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu "
-                   "bounded_kernel<D, kBounded>",
-         "source_d256_d512": src + " attend<D, kBounded>",
+         "source": src + " bounded_kernel<D, kBounded> (D = 64, 128)",
          "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:130 (_flash_kernel_bounded)",
          "launches": var["bounded_forward"]["kernel7_launches"],
          "launches_path": "dit_forward(attn_backend=flash_attention_bounded_shift)",
@@ -1749,8 +1818,9 @@ def variant_records(var, occ, kernel6_shapes):
          "row_bound_prepass_ms": dit["row_bound_ms"],
          "flagship": {k: flag[k] for k in ("kernel7_ms", "bounded_bound_ms", "library_ms",
                                            "bounded_plain_ms_2_heads", "row_bound_ms")},
-         "mma_sync_d256_d512": wide("kernel7", "bounded_bound_ms"),
-         "occupancy_d128": occ["kernel7_bounded_d128"]},
+         "wide_d256_d512": bounded_wide("kernel7"),
+         "occupancy_d128": occ["kernel7_bounded_d128"],
+         "occupancy_d512": occ["kernel7_bounded_d512"]},
     ]
 
 
@@ -1758,7 +1828,6 @@ def variant_records(var, occ, kernel6_shapes):
 # Kernel 5 at head dims 256 and 512, the envmap and the forward render
 # ---------------------------------------------------------------------------
 
-D256_SHAPE = (2, 1024, 1024, 8, 256)
 # Kernel 5 at the wide head dims: the VAE's single-head attention shapes, a
 # ragged D = 512 length, and D = 256 at 8 heads.
 WIDE_INT8_CASES = (("vae_encode_d512", VAE_ENC_SHAPE, False),

@@ -1,6 +1,6 @@
 // Flash attention for Hopper (sm_90a) on mma.sync, bf16 in, fp32 softmax
-// state: the headroom kernel at every head dim, and kernels 3, 6 and 7 at
-// the wide heads D = 256 and 512, which no model path launches.
+// state: the headroom kernel at every head dim, and kernel 3 at the wide
+// heads D = 256 and 512, which no model path launches.
 //
 // Replaces, of diffusionrenderer_tpu/ops/flash_attention.py:
 //   * the headroom rule's statistics (_bounded_cond_call :488-491, left to
@@ -10,19 +10,12 @@
 //   * _flash_kernel_partial / _flash_kernel_partial_bias (:121, :384, through
 //     flash_attention_partial :766) - the online softmax plus the per-row
 //     running max m (log2 domain) and normalizer l, the inner block of ring
-//     attention (kernel 3, flash_partial_kernel, here at D = 256 and 512);
-//   * _flash_kernel_bounded (:130-182) - p = exp2(s - mb_i) with the
-//     Cauchy-Schwarz row bound mb_i = ||q'_i|| * max_j ||k_j|| computed by the
-//     caller (kernel 7, flash_bounded_kernel<D, false>);
-//   * _flash_kernel_bounded_pipe (:262-314, flash_attention(bounded=True,
-//     pipelined=True)) - the same function with the score tile carried one key
-//     tile ahead (kernel 6, flash_bounded_kernel<D, true>).
-// Kernels 3, 6 and 7 are modes of one templated body (attend<D, Mode>),
-// launches of their own with no headroom launch and no branch tally.  At
-// D = 64 and 128 they, and kernels 1 and 2 at every head dim, are the wgmma
-// kernels of flash_attention_wgmma.cu.
+//     attention (kernel 3, flash_partial_kernel, here at D = 256 and 512).
+// Kernel 3 here is a launch of its own with no headroom launch and no
+// branch tally.  Kernels 1, 2, 6 and 7 at every head dim, and kernel 3 at
+// D = 64 and 128, are the wgmma kernels of flash_attention_wgmma.cu.
 //
-// What bounds them on an H100: 4*Lq*Lk*H*D matmul operations against (Lq + 2 Lk)
+// What bounds it on an H100: 4*Lq*Lk*H*D matmul operations against (Lq + 2 Lk)
 // *H*D*2 bytes, with Lq*Lk*H exp2 on the SFUs next, and the K and V tiles
 // every block streams from L2.  This version keeps the design simple:
 //   * one 128-thread block per (query tile, head, batch), a loop over key
@@ -38,20 +31,16 @@
 //     and each warp accumulates PV for its own D slice, so the fp32
 //     accumulator fits in registers.
 //
-// Rounding points follow the JAX kernels: q is pre-scaled by the bf16-rounded
+// Rounding points follow the JAX kernel: q is pre-scaled by the bf16-rounded
 // softmax_scale*log2(e) and rounded back to bf16; P is cast to bf16 before PV;
-// l and acc are fp32; max(l, 1e-37) in the bounded modes only.  Those modes
-// take exp2 as ex2.approx.ftz, so weights below 2^-126 flush to zero as on
-// XLA's CPU backend (rows whose bound overshoots their true max by more than
-// ~126 log2 units come out as zeros, as in JAX); kernel 3 keeps exp2f, where
-// a flushed weight could not show.
+// l and acc are fp32, l unclamped; exp2f (a weight flushed below 2^-126
+// could not show in the online softmax, whose row sums are at least 1).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "headroom_rule.cuh"
-#include "hopper.cuh"  // ex2
 
 namespace {
 
@@ -88,8 +77,7 @@ struct AttnArgs {
   __nv_bfloat16* o;
   int B, Lq, Lk, H;
   float q_scale;        // softmax_scale * log2(e), rounded to bf16
-  const float* mb;      // (B, H, Lq) row bound of the bounded modes
-  float* m_out;         // (B, H, Lq) running max and normalizer of kPartial
+  float* m_out;         // (B, H, Lq) running max and normalizer
   float* l_out;
 };
 
@@ -206,25 +194,16 @@ __global__ void __launch_bounds__(kThreads) headroom_kernel(HeadArgs p) {
 // Attention body.  Warp (wr, wd) owns query rows wr*16..+16 and head-dim slice
 // wd*DS..+DS.  Fragment layouts are those of mma.m16n8k16: thread (g, t4) =
 // (lane / 4, lane % 4) holds rows g and g+8, columns t4*2 and t4*2+1 of each
-// 8-wide n-tile.  The modes differ only in the softmax of a score tile, the
-// finalize and, for kBoundedPipe, the order of the loop:
-//   kPartial      running max m, alpha rescale of l and acc, and m
-//                 and l stored per query row                      (kernel 3)
-//   kBounded      p = exp2(s - mb_i) with the row bound mb_i read
-//                 from memory: no max, no rescale; l clamped      (kernel 7)
-//   kBoundedPipe  kBounded with tile j+1's QK^T issued before tile
-//                 j's exp2 and PV                                  (kernel 6)
+// 8-wide n-tile.  Kernel 3: the online softmax (running max m, alpha
+// rescale of l and acc), and m and l stored per query row.
 // ---------------------------------------------------------------------------
-enum Mode { kPartial, kBounded, kBoundedPipe };
-
-template <int D, Mode kMode>
+template <int D>
 __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
   using C = Cfg<D>;
   constexpr int NS = C::BK / 8;   // S n-tiles
   constexpr int KS = C::DS / 16;  // k-steps of QK^T over the warp's D slice
   constexpr int NO = C::DS / 8;   // output n-tiles
   constexpr int KP = C::BK / 16;  // k-steps of PV
-  constexpr bool kRowBound = kMode == kBounded || kMode == kBoundedPipe;
   static_assert(NO % 2 == 0, "ldmatrix.x4 loads two output n-tiles");
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -252,12 +231,6 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
     qf[ks][1] = load_q_pair(qb + (long long)r1 * row_stride + d, ok1, p.q_scale);
     qf[ks][2] = load_q_pair(qb + (long long)r0 * row_stride + d + 8, ok0, p.q_scale);
     qf[ks][3] = load_q_pair(qb + (long long)r1 * row_stride + d + 8, ok1, p.q_scale);
-  }
-  // The bounded modes' fixed per-row shift (padded rows are never stored).
-  float mb0 = 0.f, mb1 = 0.f;
-  if constexpr (kRowBound) {
-    if (ok0) mb0 = p.mb[bh_rows + r0];
-    if (ok1) mb1 = p.mb[bh_rows + r1];
   }
 
   // cp.async of the key tile's rows of K or V into a stage; keys past Lk
@@ -329,51 +302,39 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
   for (int t = 0; t < NO; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-  // P in place of S for one tile, and the row sums (and, online, the
-  // running max and the rescale of l and acc).
+  // P in place of S for one tile: the running max, the rescale of l and
+  // acc, and the row sums.
   auto softmax = [&](float (&s)[NS][4]) {
-    if constexpr (kRowBound) {
+    float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        s[n][0] = hopper::ex2(s[n][0] - mb0);
-        s[n][1] = hopper::ex2(s[n][1] - mb0);
-        s[n][2] = hopper::ex2(s[n][2] - mb1);
-        s[n][3] = hopper::ex2(s[n][3] - mb1);
-        l0 += s[n][0] + s[n][1];
-        l1 += s[n][2] + s[n][3];
-      }
-    } else {
-      float mx0 = m0, mx1 = m1;
+    for (int n = 0; n < NS; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= a0;
+    l1 *= a1;
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      l0 *= a0;
-      l1 *= a1;
+    for (int t = 0; t < NO; ++t) {
+      o[t][0] *= a0;
+      o[t][1] *= a0;
+      o[t][2] *= a1;
+      o[t][3] *= a1;
+    }
 #pragma unroll
-      for (int t = 0; t < NO; ++t) {
-        o[t][0] *= a0;
-        o[t][1] *= a0;
-        o[t][2] *= a1;
-        o[t][3] *= a1;
-      }
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        s[n][0] = exp2f(s[n][0] - m0);
-        s[n][1] = exp2f(s[n][1] - m0);
-        s[n][2] = exp2f(s[n][2] - m1);
-        s[n][3] = exp2f(s[n][3] - m1);
-        l0 += s[n][0] + s[n][1];
-        l1 += s[n][2] + s[n][3];
-      }
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = exp2f(s[n][0] - m0);
+      s[n][1] = exp2f(s[n][1] - m0);
+      s[n][2] = exp2f(s[n][2] - m1);
+      s[n][3] = exp2f(s[n][3] - m1);
+      l0 += s[n][0] + s[n][1];
+      l1 += s[n][2] + s[n][3];
     }
   };
 
@@ -402,85 +363,43 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
   const int nk = (p.Lk + C::BK - 1) / C::BK;
   auto kstage = [&](int j) { return Ks + (j & 1) * C::BK * C::PITCH; };
   auto vstage = [&](int j) { return Vs + (j & 1) * C::BK * C::PITCH; };
-  if constexpr (kMode != kBoundedPipe) {
-    // Tile j+1's K and V land while tile j is consumed.
-    load_rows(Ks, kb, 0, 0);
-    load_rows(Vs, vb, 0, 0);
-    cp_async_commit();
-    for (int j = 0; j < nk; ++j) {
-      if (j + 1 < nk) {
-        load_rows(Ks, kb, (j + 1) & 1, j + 1);
-        load_rows(Vs, vb, (j + 1) & 1, j + 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      float s[NS][4];
-      scores(s, kstage(j), j);
-      softmax(s);
-      accumulate(s, vstage(j));
-      __syncthreads();
-    }
-  } else {
-    // The TPU kernel carries the score tile across grid steps so that tile
-    // j's QK^T (MXU) overlaps tile j-1's exp2 (VPU).  Here S of tile j+1 is
-    // formed in registers before tile j's exp2 and PV, so its mma.sync work
-    // is in flight while the SFUs take the exp2.  K runs one tile ahead of
-    // V: iteration j reads K[j+1] and V[j], and loads K[j+2] and V[j+1]
-    // into the stages that K[j] and V[j-1] left.  Same operations in the
-    // same order per tile as kBounded, so the results are identical.
-    float s[NS][4];
-    load_rows(Ks, kb, 0, 0);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    scores(s, kstage(0), 0);
-    load_rows(Vs, vb, 0, 0);
-    if (nk > 1) load_rows(Ks, kb, 1, 1);
-    cp_async_commit();
-    for (int j = 0; j < nk; ++j) {
-      cp_async_wait<0>();
-      __syncthreads();
-      if (j + 2 < nk) load_rows(Ks, kb, j & 1, j + 2);
-      if (j + 1 < nk) load_rows(Vs, vb, (j + 1) & 1, j + 1);
+  // Tile j+1's K and V land while tile j is consumed.
+  load_rows(Ks, kb, 0, 0);
+  load_rows(Vs, vb, 0, 0);
+  cp_async_commit();
+  for (int j = 0; j < nk; ++j) {
+    if (j + 1 < nk) {
+      load_rows(Ks, kb, (j + 1) & 1, j + 1);
+      load_rows(Vs, vb, (j + 1) & 1, j + 1);
       cp_async_commit();
-      float sn[NS][4];
-      if (j + 1 < nk) scores(sn, kstage(j + 1), j + 1);
-      softmax(s);
-      accumulate(s, vstage(j));
-      if (j + 1 < nk) {
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = sn[n][e];
-      }
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    float s[NS][4];
+    scores(s, kstage(j), j);
+    softmax(s);
+    accumulate(s, vstage(j));
+    __syncthreads();
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  if constexpr (kMode == kPartial) {
-    // JAX's partial stats: the running max (log2 domain) and the unclamped
-    // normalizer, one value per query row; every warp of a row group and
-    // every lane of a quad holds the same pair.
-    if (wd == 0 && t4 == 0) {
-      if (ok0) {
-        p.m_out[bh_rows + r0] = m0;
-        p.l_out[bh_rows + r0] = l0;
-      }
-      if (ok1) {
-        p.m_out[bh_rows + r1] = m1;
-        p.l_out[bh_rows + r1] = l1;
-      }
+  // JAX's partial stats: the running max (log2 domain) and the unclamped
+  // normalizer, one value per query row; every warp of a row group and
+  // every lane of a quad holds the same pair.
+  if (wd == 0 && t4 == 0) {
+    if (ok0) {
+      p.m_out[bh_rows + r0] = m0;
+      p.l_out[bh_rows + r0] = l0;
     }
-  }
-  if constexpr (kRowBound) {
-    l0 = fmaxf(l0, 1e-37f);
-    l1 = fmaxf(l1, 1e-37f);
+    if (ok1) {
+      p.m_out[bh_rows + r1] = m1;
+      p.l_out[bh_rows + r1] = l1;
+    }
   }
   __nv_bfloat16* ob = p.o + (long long)b * p.Lq * row_stride + (long long)h * D;
 #pragma unroll
@@ -500,15 +419,7 @@ __device__ __forceinline__ void attend(const AttnArgs& p, unsigned char* smem) {
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_partial_kernel(AttnArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  attend<D, kPartial>(p, smem);
-}
-
-// Kernels 7 (kPipe false) and 6 (kPipe true): the bounded softmax, shifted by
-// the per-row bound the caller computed.  No headroom launch, no branch tally.
-template <int D, bool kPipe>
-__global__ void __launch_bounds__(kThreads) flash_bounded_kernel(AttnArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  attend<D, kPipe ? kBoundedPipe : kBounded>(p, smem);
+  attend<D>(p, smem);
 }
 
 template <int D, typename Kernel>
@@ -543,8 +454,8 @@ extern "C" {
 
 const char* drt_error_string(int code) {
   if (code == kUnsupportedHeadDim)
-    return "unsupported head dim for this launch (headroom: 64, 128, 256 or 512; kernels 3, 6 "
-           "and 7: 256 or 512, flash_attention_wgmma.cu takes 64 and 128)";
+    return "unsupported head dim for this launch (headroom: 64, 128, 256 or 512; kernel 3: 256 "
+           "or 512, flash_attention_wgmma.cu takes 64 and 128)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
@@ -582,23 +493,6 @@ int drt_flash_attention_partial(const void* q, const void* k, const void* v, voi
   switch (D) {
     case 256: return launch<256>(flash_partial_kernel<256>, a, st);
     case 512: return launch<512>(flash_partial_kernel<512>, a, st);
-    default: return kUnsupportedHeadDim;
-  }
-}
-
-// mb: fp32 (B, H, Lq), the per-row bound.  pipelined selects kernel 6, else
-// kernel 7: D = 256, 512 here, flash_attention_wgmma.cu at D = 64, 128.
-int drt_flash_attention_bounded(const void* q, const void* k, const void* v, void* o,
-                                const void* mb, int B, int Lq, int Lk, int H, int D,
-                                float q_scale, int pipelined, void* stream) {
-  AttnArgs a = attn_args(q, k, v, o, B, Lq, Lk, H, q_scale);
-  a.mb = static_cast<const float*>(mb);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 256: return launch<256>(pipelined ? flash_bounded_kernel<256, true>
-                                           : flash_bounded_kernel<256, false>, a, st);
-    case 512: return launch<512>(pipelined ? flash_bounded_kernel<512, true>
-                                           : flash_bounded_kernel<512, false>, a, st);
     default: return kUnsupportedHeadDim;
   }
 }

@@ -1,6 +1,7 @@
 // Kernels 1, 2, 3, 6 and 7 for Hopper (sm_90a): flash attention on wgmma,
-// TMA and mbarriers, at head dims 64 and 128, and kernels 1 and 2 also at
-// the wide heads 256 and 512 (the VAE's mid-block attention).
+// TMA and mbarriers.  Kernels 1, 2, 6 and 7 at every head dim (64, 128, and
+// the wide heads 256 and 512, the VAE's mid-block attention, on attend_wide),
+// kernel 3 at 64 and 128 (csrc/flash_attention.cu holds it at 256 and 512).
 //
 // Replaces, of diffusionrenderer_tpu/ops/flash_attention.py:
 //   * _flash_kernel_noshift (:185-259) - p = exp2(s) with no max shift, taken
@@ -26,8 +27,9 @@
 // no-shift or the online body; block (0, 0, 0) tallies the branch.  An
 // unbounded call runs the online body and tallies it.  Kernels 3, 6 and 7
 // are launches of their own (partial_kernel<D>, bounded_kernel<D, kBoundedPipe
-// | kBounded>), with no rule and no tally; kernel 3 is the online body, so
-// its output equals the unbounded call's bit for bit.  With
+// | kBounded>, at the wide heads bounded_kernel_wide<D, ...>), with no rule
+// and no tally; kernel 3 is the online body, so its output equals the
+// unbounded call's bit for bit.  With
 // q' = bf16(q * bf16(scale * log2 e)), per key tile of BK keys and row i:
 //   no-shift  p = exp2(s),                  l += sum_j p,  acc += bf16(p) v
 //   online    m_new = max(m, max_j s_ij),   alpha = exp2(m - m_new),
@@ -135,6 +137,7 @@ struct Args {
   int bounded;
   float* m_out;        // (B, H, Lq) running max and normalizer (kernel 3)
   float* l_out;
+  int split;           // kernels 6 and 7 at the wide heads: keys split over 2-block clusters
 };
 
 template <int N> struct Buf { static constexpr int value = N; };
@@ -574,8 +577,11 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
 }
 
 // ---------------------------------------------------------------------------
-// Kernels 1 and 2 at the wide heads, D = 256 and 512 (the VAE's mid-block
-// attention, one head at D = 512; JAX's kernels take it at block_k <= 512).
+// Kernels 1, 2, 6 and 7 at the wide heads, D = 256 and 512 (the VAE's
+// mid-block attention, one head at D = 512; JAX's kernels take it at
+// block_k <= 512).  Kernels 6 and 7 are the no-shift body shifted by the
+// row bound; both run the one schedule below (it already carries the score
+// tile, as kernel 6 must), under two launch names, so they agree bit for bit.
 //
 // A 64-row fp32 accumulator over all of D = 512 is 256 registers a thread,
 // more than a thread has, and rows per block set the L2 traffic (every block
@@ -608,7 +614,21 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
 //     clusters sharing each K and V tile by TMA multicast (half the L2
 //     reads) measured slower at every shape: the L2 stream does not bound
 //     this body; shared-memory traffic per key (Q re-read by every QK^T
-//     wgmma, the tiles' TMA writes, the exchange) is the likelier limit.
+//     wgmma, the tiles' TMA writes, the exchange) is the likelier limit;
+//   * the key split (kernels 6 and 7): one block per SM and 64 query rows a
+//     block leave most SMs idle where B * H * ceil(Lq / 64) is small (64
+//     blocks on 132 SMs at the VAE's encode shape).  The bounded softmax's
+//     shift is fixed per row, so the l and acc of disjoint key ranges add
+//     with no rescale: out = (acc_0 + acc_1) / (l_0 + l_1).  Where half-
+//     length blocks in pairs take fewer waves (key_split_rule: where the
+//     grid fits the card's resident clusters, or its last wave of whole
+//     blocks is less than half full), the launch pairs each query tile's
+//     block with a second one in a cluster, rank r taking the r-th half of
+//     the key tiles; after both last PVs, rank 1
+//     stores its acc and l into rank 0's K / V rings and score buffers
+//     (distributed shared memory: 64 x 512 fp32 is exactly the rings' 128
+//     KB), and after a cluster barrier rank 0 adds them in that one order and
+//     writes the output.  No atomics: the same bits every run.
 // ---------------------------------------------------------------------------
 #ifdef DRT_WIDE_BLOCK_K_D256
 template <int D> constexpr int kWideBlockK = D == 256 ? DRT_WIDE_BLOCK_K_D256 : 32;
@@ -630,14 +650,56 @@ template <int D> struct WideCfg {
   static constexpr int SCRATCH_OFFSET = BAR_OFFSET + 8 * (1 + 2 * STAGES);
   static constexpr size_t smem_bytes = SCRATCH_OFFSET + 4 * (kThreads / 32 + 1);
   static_assert(smem_bytes <= 232448, "more than the 227 KB of shared memory a block may have");
+  // The key split's merge: rank 1's acc (two warpgroups x 128 threads x
+  // DS / 2 fp32) into rank 0's K and V rings, its l (two fp32 a thread) into
+  // the score buffers.
+  static_assert(kThreads * (DS / 2) * 4 <= 2 * STAGES * T_BYTES, "acc does not fit the rings");
+  static_assert(kThreads * 8 <= 2 * kWGS * X_BYTES, "l does not fit the score buffers");
 };
+
+// The key split's merge, by every thread of both blocks of the cluster once
+// each block's last PV has landed: rank 0's o and l (row sums, quad-summed)
+// become acc_0 + acc_1 and l_0 + l_1.  Thread tid of either block holds the
+// same rows and columns, so rank 1's thread tid stores to the slots rank 0's
+// thread tid reads.
+template <typename C, int NO>
+__device__ __forceinline__ void merge_key_split(unsigned char* smem, float (&o)[NO], float& l0,
+                                                float& l1, int rank) {
+  float4* acc = reinterpret_cast<float4*>(smem + C::Q_BYTES);  // the K and V rings
+  float2* ls = reinterpret_cast<float2*>(smem + C::X_OFFSET);  // the score buffers
+  const int tid = threadIdx.x;
+  cluster_sync();  // both blocks are done with their rings and score buffers
+  if (rank == 1) {
+    const uint32_t racc = map_shared_rank(smem_u32(acc), 0);
+#pragma unroll
+    for (int i = 0; i < NO / 4; ++i)
+      st_cluster_v4(racc + (i * kThreads + tid) * 16, o[4 * i], o[4 * i + 1], o[4 * i + 2],
+                    o[4 * i + 3]);
+    st_cluster_v2(map_shared_rank(smem_u32(ls), 0) + tid * 8, l0, l1);
+  }
+  cluster_sync();  // rank 1's stores are visible in rank 0
+  if (rank == 0) {
+#pragma unroll
+    for (int i = 0; i < NO / 4; ++i) {
+      const float4 y = acc[i * kThreads + tid];
+      o[4 * i] += y.x;
+      o[4 * i + 1] += y.y;
+      o[4 * i + 2] += y.z;
+      o[4 * i + 3] += y.w;
+    }
+    const float2 y = ls[tid];
+    l0 += y.x;
+    l1 += y.y;
+  }
+}
 
 template <int D, Mode kMode>
 __device__ __forceinline__ void attend_wide(const CUtensorMap* tq, const CUtensorMap* tk,
                                             const CUtensorMap* tv, const Args& p,
                                             unsigned char* smem) {
   using C = WideCfg<D>;
-  static_assert(kMode == kNoShift || kMode == kOnline, "the wide heads take kernels 1 and 2");
+  static_assert(kMode != kPartial, "kernel 3 at the wide heads is csrc/flash_attention.cu's");
+  constexpr bool kRowBound = kMode == kBoundedPipe || kMode == kBounded;
   constexpr int BK = C::BK, S = C::STAGES;
   constexpr int NS = BK / 2;       // S accumulator registers
   constexpr int NO = C::DS / 2;    // output accumulator registers
@@ -653,8 +715,21 @@ __device__ __forceinline__ void attend_wide(const CUtensorMap* tq, const CUtenso
 
   const int tid = threadIdx.x, wg = tid >> 7, tw = tid & 127, warp = tw >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * C::BQ;
-  const int nk = (p.Lk + BK - 1) / BK;
+  const int b = blockIdx.z, h = blockIdx.y;
+  // The key split: the block of cluster rank `rank` takes key tiles [t0, t0
+  // + nk) of the nk_all; blocks 2i and 2i+1 share query tile i.  Unsplit,
+  // every block takes them all.  The loop numbers this block's tiles from 0
+  // (stages, barrier parities); its tile t holds keys from (t0 + t) * BK.
+  const bool split = kRowBound && p.split;
+  const int nk_all = (p.Lk + BK - 1) / BK;
+  int rank = 0, t0 = 0, nk = nk_all;
+  if (split) {
+    rank = __shfl_sync(0xffffffffu, (int)cluster_ctarank(), 0);
+    const int half = (nk_all + 1) / 2;
+    t0 = rank * half;
+    nk = rank ? nk_all - half : half;
+  }
+  const int q0 = (split ? blockIdx.x >> 1 : blockIdx.x) * C::BQ;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
 
   if (tid == 0) {
@@ -667,13 +742,14 @@ __device__ __forceinline__ void attend_wide(const CUtensorMap* tq, const CUtenso
   }
   __syncthreads();
 
-  // Key tile t of K or V into its stage, by one thread.
+  // This block's key tile t (key tile t0 + t) of K or V into its stage, by one thread.
   auto load_tile = [&](const CUtensorMap* map, unsigned char* ring, uint64_t* bars, int t) {
     const int s = t % S;
     mbar_expect_tx(bars + s, C::T_BYTES);
 #pragma unroll
     for (int nb = 0; nb < C::NB; ++nb)
-      tma_load_4d(ring + s * C::T_BYTES + nb * BK * 128, map, bars + s, nb * 64, h, t * BK, b);
+      tma_load_4d(ring + s * C::T_BYTES + nb * BK * 128, map, bars + s, nb * 64, h,
+                  (t0 + t) * BK, b);
   };
   if (tid == 0) {
     mbar_expect_tx(qbar, C::Q_BYTES);
@@ -684,6 +760,14 @@ __device__ __forceinline__ void attend_wide(const CUtensorMap* tq, const CUtenso
       load_tile(tk, Ks, kbar, t);
       load_tile(tv, Vs, vbar, t);
     }
+  }
+  // Kernels 6 and 7's fixed per-row shift (padded rows are never stored);
+  // 0 for kernel 1.
+  float mb0 = 0.f, mb1 = 0.f;
+  if constexpr (kRowBound) {
+    const long long rows = ((long long)b * p.H + h) * p.Lq;
+    if (r0 < p.Lq) mb0 = p.mb[rows + r0];
+    if (r1 < p.Lq) mb1 = p.mb[rows + r1];
   }
   mbar_wait(qbar, 0);
   prescale_q<C::Q_BYTES>(Qs, p.q_scale);
@@ -773,14 +857,15 @@ __device__ __forceinline__ void attend_wide(const CUtensorMap* tq, const CUtenso
     fence_regs(o);
     fence_regs(pa);
     exchange(cur, j);
+    const int key0 = (t0 + j) * BK;
     if constexpr (kMode == kOnline) {
       float a0, a1;
-      online_softmax<BK, true>(cur, j * BK, p.Lk, t4, m0, m1, l0, l1, a0, a1);
+      online_softmax<BK, true>(cur, key0, p.Lk, t4, m0, m1, l0, l1, a0, a1);
       rescale(o, a0, a1);  // no PV is in flight
       pack_p<BK>(cur, pa);
     } else {
-      const int lim = (j + 1) * BK > p.Lk ? p.Lk - j * BK - 2 * t4 : BK;
-      exp_pack<BK>(cur, pa, 0.f, 0.f, lim, l0, l1);
+      const int lim = key0 + BK > p.Lk ? p.Lk - key0 - 2 * t4 : BK;
+      exp_pack<BK>(cur, pa, mb0, mb1, lim, l0, l1);
     }
   };
 
@@ -813,7 +898,11 @@ __device__ __forceinline__ void attend_wide(const CUtensorMap* tq, const CUtenso
   fence_regs(o);
 
   quad_sum(l0, l1);
-  if constexpr (kMode == kNoShift) {
+  if (split) {
+    merge_key_split<C>(smem, o, l0, l1, rank);
+    if (rank == 1) return;
+  }
+  if constexpr (kMode != kOnline) {
     l0 = fmaxf(l0, 1e-37f);
     l1 = fmaxf(l1, 1e-37f);
   }
@@ -896,10 +985,41 @@ __global__ void __launch_bounds__(kThreads)
   attend<D, kMode>(&tq, &tk, &tv, p, smem);
 }
 
+// Kernels 6 and 7 at the wide heads, on attend_wide; with p.split, launched
+// in 2-block clusters that split the keys.
+template <int D, Mode kMode>
+__global__ void __launch_bounds__(kThreads)
+    bounded_kernel_wide(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const Args p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (smem_u32(smem) & 1023) __trap();
+  attend_wide<D, kMode>(&tq, &tk, &tv, p, smem);
+}
+
 typedef void (*KernelFn)(CUtensorMap, CUtensorMap, CUtensorMap, Args);
 
+// The launch configuration of a key split: 2-block clusters along x.
+struct PairClusters {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  PairClusters(dim3 grid, size_t smem, cudaStream_t stream) : attr{}, cfg{} {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 2;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
 // One launch of `kernel` laid out by C (Cfg or WideCfg): BQ query rows a
-// block, BK-key tiles.
+// block, BK-key tiles; with a.split, two blocks a query tile in 2-block
+// clusters.
 template <int D, typename C>
 int launch(KernelFn kernel, const void* q, const void* k, const void* v, const Args& a,
            cudaStream_t stream) {
@@ -911,7 +1031,11 @@ int launch(KernelFn kernel, const void* q, const void* k, const void* v, const A
   cudaError_t ce = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         static_cast<int>(C::smem_bytes));
   if (ce != cudaSuccess) return ce;
-  const dim3 grid((a.Lq + C::BQ - 1) / C::BQ, a.H, a.B);
+  const dim3 grid((a.Lq + C::BQ - 1) / C::BQ * (a.split ? 2 : 1), a.H, a.B);
+  if (a.split) {
+    PairClusters pc(grid, C::smem_bytes, stream);
+    return cudaLaunchKernelEx(&pc.cfg, kernel, mq, mk, mv, a);
+  }
   kernel<<<grid, kThreads, C::smem_bytes, stream>>>(mq, mk, mv, a);
   return cudaGetLastError();
 }
@@ -929,6 +1053,10 @@ int kernel_of(int which, int D, KernelFn* fn, size_t* smem) {
   else if (which == 1 && D == 128) *fn = bounded_kernel<128, kBoundedPipe>, *smem = Cfg<128, kBlockK<kBoundedPipe, 128>>::smem_bytes;
   else if (which == 2 && D == 64) *fn = bounded_kernel<64, kBounded>, *smem = Cfg<64, kBlockK<kBounded, 64>>::smem_bytes;
   else if (which == 2 && D == 128) *fn = bounded_kernel<128, kBounded>, *smem = Cfg<128, kBlockK<kBounded, 128>>::smem_bytes;
+  else if (which == 1 && D == 256) *fn = bounded_kernel_wide<256, kBoundedPipe>, *smem = WideCfg<256>::smem_bytes;
+  else if (which == 1 && D == 512) *fn = bounded_kernel_wide<512, kBoundedPipe>, *smem = WideCfg<512>::smem_bytes;
+  else if (which == 2 && D == 256) *fn = bounded_kernel_wide<256, kBounded>, *smem = WideCfg<256>::smem_bytes;
+  else if (which == 2 && D == 512) *fn = bounded_kernel_wide<512, kBounded>, *smem = WideCfg<512>::smem_bytes;
   else return kUnsupported;
   return 0;
 }
@@ -937,14 +1065,72 @@ bool bad_sizes(int B, int Lq, int Lk, int H) {
   return B < 1 || Lq < 1 || Lk < 1 || H < 1 || B > 65535 || H > 65535;
 }
 
+// How many blocks of kernel 6 or 7 (`which` 1, 2) at D = 256 or 512 the
+// current card holds at once, whole and as 2-block clusters; asked of the
+// runtime once per kernel (a process drives one kind of card).
+struct Residency {
+  int blocks, pairs;
+};
+
+int wide_residency(int which, int D, Residency* r) {
+  static Residency cached[2][2] = {};
+  Residency& c = cached[which - 1][D == 512];
+  if (c.blocks == 0) {
+    KernelFn fn;
+    size_t smem;
+    const int e = kernel_of(which, D, &fn, &smem);
+    if (e != 0) return e;
+    const void* f = reinterpret_cast<const void*>(fn);
+    int per_sm = 0, sms = 0, dev = 0, pairs = 0;
+    cudaError_t ce = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (ce == cudaSuccess) ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, f, kThreads, smem);
+    if (ce == cudaSuccess) ce = cudaGetDevice(&dev);
+    if (ce == cudaSuccess) ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    PairClusters pc(dim3(2), smem, nullptr);
+    if (ce == cudaSuccess) ce = cudaOccupancyMaxActiveClusters(&pairs, f, &pc.cfg);
+    if (ce != cudaSuccess) return ce;
+    if (per_sm * sms == 0) return kUnsupported;
+    c = {per_sm * sms, pairs};
+  }
+  *r = c;
+  return 0;
+}
+
+// Whether kernels 6 and 7 can split these keys: at the wide heads, with two
+// key tiles or more (one for each block of a cluster).
+bool key_split_fits(int Lk, int D) {
+  if (D != 256 && D != 512) return false;
+  const int bk = D == 256 ? WideCfg<256>::BK : WideCfg<512>::BK;
+  return (Lk + bk - 1) / bk >= 2;
+}
+
+// Kernels 6 and 7's key split rule, where key_split_fits: split where the
+// n = B * H * ceil(Lq / 64) query tiles, as 2-block clusters of half-length
+// blocks, take fewer waves than twice the waves of whole blocks,
+// ceil(n / pairs) < 2 ceil(n / blocks).  That holds where n
+// fits the resident clusters (the VAE's encode shape, 64 blocks on 132 SMs)
+// and where the last wave of whole blocks is less than half full (its decode
+// shape, 320 blocks); where the waves come out even, the split would only
+// add the merge.
+int key_split_rule(int which, int B, int Lq, int Lk, int H, int D, int* split) {
+  *split = 0;
+  if (!key_split_fits(Lk, D)) return 0;
+  Residency r;
+  const int e = wide_residency(which, D, &r);
+  if (e != 0) return e;
+  const long long n = (long long)B * H * ((Lq + WideCfg<512>::BQ - 1) / WideCfg<512>::BQ);
+  *split = r.pairs > 0 && (n + r.pairs - 1) / r.pairs < 2 * ((n + r.blocks - 1) / r.blocks);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* drt_flash_wgmma_error_string(int code) {
   if (code == kUnsupported)
-    return "unsupported head dim or sizes (the wgmma kernels take D = 64, 128; kernels 1 and 2 "
-           "also 256, 512)";
+    return "unsupported head dim or sizes (kernels 1, 2, 6 and 7 take D = 64, 128, 256, 512, "
+           "kernel 3 D = 64, 128; a key split D = 256, 512 and two key tiles or more)";
   if (code == kEncodeFailed) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -983,28 +1169,49 @@ int drt_flash_wgmma_partial(const void* q, const void* k, const void* v, void* o
                  : launch<128, Cfg<128, kBlockK<kPartial, 128>>>(fn, q, k, v, a, st);
 }
 
-// Kernel 6 (pipelined) or 7 on (B, L, H, D) bf16 q, k, v and the fp32
-// (B, H, Lq) row bound mb.
-int drt_flash_wgmma_bounded(const void* q, const void* k, const void* v, void* o, const void* mb,
-                            int B, int Lq, int Lk, int H, int D, float q_scale, int pipelined,
-                            void* stream) {
-  KernelFn fn;
-  size_t smem;
-  if (bad_sizes(B, Lq, Lk, H) || kernel_of(pipelined ? 1 : 2, D, &fn, &smem) != 0)
-    return kUnsupported;
-  Args a{static_cast<__nv_bfloat16*>(o), nullptr, nullptr, static_cast<const float*>(mb),
-         B, Lq, Lk, H, q_scale, 0.f, 0};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pipelined)
-    return D == 64 ? launch<64, Cfg<64, kBlockK<kBoundedPipe, 64>>>(fn, q, k, v, a, st)
-                   : launch<128, Cfg<128, kBlockK<kBoundedPipe, 128>>>(fn, q, k, v, a, st);
-  return D == 64 ? launch<64, Cfg<64, kBlockK<kBounded, 64>>>(fn, q, k, v, a, st)
-                 : launch<128, Cfg<128, kBlockK<kBounded, 128>>>(fn, q, k, v, a, st);
+// Kernels 6 and 7's key split of these sizes (kernel 6 if pipelined, else
+// 7): *split = 1 where drt_flash_wgmma_bounded splits the keys by default
+// (key_split_rule).
+int drt_flash_wgmma_key_split(int B, int Lq, int Lk, int H, int D, int pipelined, int* split) {
+  if (bad_sizes(B, Lq, Lk, H)) return kUnsupported;
+  return key_split_rule(pipelined ? 1 : 2, B, Lq, Lk, H, D, split);
 }
 
-// which: 0 = kernels 1 and 2's launch (D = 64, 128, 256, 512), 1 = kernel 6, 2 = kernel 7,
-// 3 = kernel 3.  out = {registers, local (spill) bytes, dynamic shared bytes, resident blocks
-// per SM, threads per block}.
+// Kernel 6 (pipelined) or 7 on (B, L, H, D) bf16 q, k, v and the fp32
+// (B, H, Lq) row bound mb.  key_split: -1 the rule of
+// drt_flash_wgmma_key_split, 0 never, 1 always (D = 256, 512, two key tiles
+// or more).
+int drt_flash_wgmma_bounded(const void* q, const void* k, const void* v, void* o, const void* mb,
+                            int B, int Lq, int Lk, int H, int D, float q_scale, int pipelined,
+                            int key_split, void* stream) {
+  KernelFn fn;
+  size_t smem;
+  const int which = pipelined ? 1 : 2;
+  if (bad_sizes(B, Lq, Lk, H) || kernel_of(which, D, &fn, &smem) != 0) return kUnsupported;
+  Args a{static_cast<__nv_bfloat16*>(o), nullptr, nullptr, static_cast<const float*>(mb),
+         B, Lq, Lk, H, q_scale, 0.f, 0};
+  if (key_split < 0) {
+    const int e = key_split_rule(which, B, Lq, Lk, H, D, &a.split);
+    if (e != 0) return e;
+  } else if (key_split > 0) {
+    if (!key_split_fits(Lk, D)) return kUnsupported;
+    a.split = 1;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return pipelined ? launch<64, Cfg<64, kBlockK<kBoundedPipe, 64>>>(fn, q, k, v, a, st)
+                              : launch<64, Cfg<64, kBlockK<kBounded, 64>>>(fn, q, k, v, a, st);
+    case 128: return pipelined ? launch<128, Cfg<128, kBlockK<kBoundedPipe, 128>>>(fn, q, k, v, a, st)
+                               : launch<128, Cfg<128, kBlockK<kBounded, 128>>>(fn, q, k, v, a, st);
+    case 256: return launch<256, WideCfg<256>>(fn, q, k, v, a, st);
+    default: return launch<512, WideCfg<512>>(fn, q, k, v, a, st);
+  }
+}
+
+// which: 0 = kernels 1 and 2's launch, 1 = kernel 6, 2 = kernel 7 (D = 64, 128, 256, 512),
+// 3 = kernel 3 (D = 64, 128).  out = {registers, local (spill) bytes, dynamic shared bytes,
+// resident blocks per SM, threads per block, resident 2-block clusters of the key split
+// (kernels 6 and 7 at D = 256, 512; else 0)}.
 int drt_flash_wgmma_occupancy(int which, int D, int* out) {
   KernelFn fn;
   size_t smem;
@@ -1022,6 +1229,13 @@ int drt_flash_wgmma_occupancy(int which, int D, int* out) {
   out[2] = (int)smem;
   out[3] = blocks;
   out[4] = kThreads;
+  out[5] = 0;
+  if ((which == 1 || which == 2) && (D == 256 || D == 512)) {
+    Residency r;
+    const int err2 = wide_residency(which, D, &r);
+    if (err2 != 0) return err2;
+    out[5] = r.pairs;
+  }
   return 0;
 }
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (attention and
 // the W8A8 matmul):
 // mbarriers, TMA tile loads, wgmma matrix descriptors and the wgmma
-// instructions themselves, plus the host-side tensor-map encoder.
+// instructions themselves, cluster barriers and stores to another block's
+// shared memory, plus the host-side tensor-map encoder.
 //
 // Conventions.  Every operand tile in shared memory is written by TMA with a
 // 64- or 128-byte swizzle, in boxes whose rows are exactly one swizzle span
@@ -104,6 +105,41 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 // async-proxy reads (wgmma, TMA) of the same bytes.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -------------------------------------------------------------------------
+// Thread block clusters and distributed shared memory
+// -------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: arrive (release) and wait
+// (acquire), so shared-memory writes before it, to any block of the cluster,
+// are seen after it.  Also proves every block of the cluster is running.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of this block's shared address `addr` in the
+// shared memory of the cluster's block `rank`.
+__device__ __forceinline__ uint32_t map_shared_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b),
+               "f"(c), "f"(d)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_v2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b)
+               : "memory");
 }
 
 // -------------------------------------------------------------------------

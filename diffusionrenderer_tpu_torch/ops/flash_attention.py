@@ -3,9 +3,9 @@
 Counterpart of diffusionrenderer_tpu/ops/flash_attention.py
 (`flash_attention(bounded=..., qk_int8=..., pv_int8=...)`).  The kernels are
 in `csrc/flash_attention_wgmma.cu` (on wgmma and TMA: kernels 1 and 2 in one
-launch at every head dim, and kernels 3, 6 and 7 at head dims 64 and 128),
-`csrc/flash_attention.cu` (bf16 on mma.sync: kernels 3, 6 and 7 at head dims
-256 and 512, the headroom kernel) and `csrc/flash_attention_int8.cu`; this
+launch, and kernels 6 and 7, at every head dim; kernel 3 at head dims 64 and
+128), `csrc/flash_attention.cu` (bf16 on mma.sync: kernel 3 at head dims 256
+and 512, the headroom kernel) and `csrc/flash_attention_int8.cu`; this
 module holds
 
 * `flash_attention` - the entry point, with the JAX package's signature and
@@ -27,9 +27,10 @@ module holds
 * `flash_attention_bounded_shift` and `flash_attention(bounded=True,
   pipelined=True)` - the bounded softmax p = exp2(s - mb_i) with the row
   bound of `row_bound` (`flash_attention_bounded_kernel`, one kernel with
-  and one without the carried score tile; plain version
-  `flash_attention_bounded_plain`).  As in JAX, no dispatcher route reaches
-  the first: it is called by name.
+  and one without the carried score tile, one schedule at D = 256 and 512,
+  whose keys split over 2-block clusters where the grid is small,
+  `bounded_key_split`; plain version `flash_attention_bounded_plain`).  As
+  in JAX, no dispatcher route reaches the first: it is called by name.
 
 Under autograd (grad enabled and q, k or v requiring grad) `flash_attention`
 goes through `FlashAttentionFunction` whatever its `bounded` flag (no-shift,
@@ -91,9 +92,10 @@ HEAD_DIMS = (64, 128, 256, 512)
 # Keys per tile of the int8 kernel at each head dim it takes
 # (csrc/flash_attention_int8.cu, drt_flash_int8_block_k).
 INT8_BLOCK_K = {64: 64, 128: 64, 256: 64, 512: 32}
-# Head dims at which kernels 3, 6 and 7 are the wgmma kernels
-# (csrc/flash_attention_wgmma.cu); kernels 1 and 2 are at every head dim.
-WGMMA_HEAD_DIMS = (64, 128)
+# Head dims at which kernel 3 is the wgmma kernel (csrc/flash_attention_wgmma.cu;
+# csrc/flash_attention.cu at 256 and 512).  Kernels 1, 2, 6 and 7 are wgmma
+# kernels at every head dim.
+PARTIAL_WGMMA_HEAD_DIMS = (64, 128)
 _JAX_DEFAULT_BLOCK_K = 2816  # diffusionrenderer_tpu/ops/flash_attention.py DEFAULT_BLOCK_K
 
 # Launches of each kernel since the last reset_counts(), counted by its wrapper.
@@ -420,8 +422,6 @@ def _lib() -> ctypes.CDLL:
         lib.drt_flash_headroom.restype = i32
         lib.drt_flash_attention_partial.argtypes = [ptr] * 6 + [i32] * 5 + [f32, ptr]
         lib.drt_flash_attention_partial.restype = i32
-        lib.drt_flash_attention_bounded.argtypes = [ptr] * 5 + [i32] * 5 + [f32, i32, ptr]
-        lib.drt_flash_attention_bounded.restype = i32
         lib.drt_error_string.argtypes = [i32]
         lib.drt_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -440,8 +440,10 @@ def _lib_wgmma() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.drt_flash_wgmma_attention.argtypes = [ptr] * 6 + [i32] * 5 + [f32, f32, i32, ptr]
         lib.drt_flash_wgmma_attention.restype = i32
-        lib.drt_flash_wgmma_bounded.argtypes = [ptr] * 5 + [i32] * 5 + [f32, i32, ptr]
+        lib.drt_flash_wgmma_bounded.argtypes = [ptr] * 5 + [i32] * 5 + [f32, i32, i32, ptr]
         lib.drt_flash_wgmma_bounded.restype = i32
+        lib.drt_flash_wgmma_key_split.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
+        lib.drt_flash_wgmma_key_split.restype = i32
         lib.drt_flash_wgmma_partial.argtypes = [ptr] * 6 + [i32] * 5 + [f32, ptr]
         lib.drt_flash_wgmma_partial.restype = i32
         lib.drt_flash_wgmma_error_string.argtypes = [i32]
@@ -574,11 +576,13 @@ def flash_attention_kernel(q, k, v, stats: Optional[torch.Tensor]) -> torch.Tens
 def kernel_occupancy(kernel: str, d: int, pv_int8: bool = False) -> Dict[str, int]:
     """What the CUDA runtime reports for one kernel at head dim d: registers
     a thread, local (spill) bytes, dynamic shared bytes, resident blocks
-    per SM and threads per block.  kernel: 'attention' (the launch holding
-    kernels 1 and 2, any head dim), 'bounded_pipe' (kernel 6 at D = 64, 128),
-    'bounded' (kernel 7 at D = 64, 128), 'partial' (kernel 3 at D = 64, 128)
-    or 'int8' (kernel 5, pv_int8 selecting its mode)."""
-    out = (ctypes.c_int * 5)()
+    per SM and threads per block (and for kernels 6 and 7 at D = 256, 512
+    the 2-block clusters of the key split resident at once).  kernel:
+    'attention' (the launch holding kernels 1 and 2), 'bounded_pipe'
+    (kernel 6), 'bounded' (kernel 7), each at any head dim, 'partial'
+    (kernel 3 at D = 64, 128) or 'int8' (kernel 5, pv_int8 selecting its
+    mode)."""
+    out = (ctypes.c_int * 6)()
     wgmma_kernels = ("attention", "bounded_pipe", "bounded", "partial")
     if kernel in wgmma_kernels:
         lib = _lib_wgmma()
@@ -592,8 +596,11 @@ def kernel_occupancy(kernel: str, d: int, pv_int8: bool = False) -> Dict[str, in
         raise ValueError(f"unknown kernel {kernel!r}")
     if err != 0:
         raise RuntimeError(f"occupancy of {kernel} at D={d}: {why(err).decode()} (code {err})")
-    return dict(zip(("registers", "spill_bytes", "dynamic_smem_bytes", "blocks_per_sm",
-                     "threads_per_block"), out))
+    occ = dict(zip(("registers", "spill_bytes", "dynamic_smem_bytes", "blocks_per_sm",
+                    "threads_per_block"), out))
+    if out[5]:
+        occ["pair_clusters"] = out[5]
+    return occ
 
 
 def flash_attention_partial_kernel(q, k, v):
@@ -608,7 +615,7 @@ def flash_attention_partial_kernel(q, k, v):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
             b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype), _stream(q.device))
     with torch.cuda.device(q.device):
-        if d in WGMMA_HEAD_DIMS:
+        if d in PARTIAL_WGMMA_HEAD_DIMS:
             _raise_on_wgmma(_lib_wgmma().drt_flash_wgmma_partial(*args), "flash_attention_partial")
         else:
             _raise_on(_lib().drt_flash_attention_partial(*args), "flash_attention_partial")
@@ -616,29 +623,45 @@ def flash_attention_partial_kernel(q, k, v):
     return out, m, l
 
 
-def flash_attention_bounded_kernel(q, k, v, mb: torch.Tensor, *, pipelined: bool) -> torch.Tensor:
+def flash_attention_bounded_kernel(q, k, v, mb: torch.Tensor, *, pipelined: bool,
+                                   key_split: Optional[bool] = None) -> torch.Tensor:
     """Launch kernel 6 (pipelined) or 7 on the row bound mb (fp32 (B, H,
-    Lq), from row_bound): the wgmma kernels at D = 64, 128, mma.sync at 256,
-    512."""
+    Lq), from row_bound): the wgmma kernels at every head dim.  key_split
+    (D = 256, 512): None splits the keys over 2-block clusters where
+    bounded_key_split says so; True or False forces it (True needs two key
+    tiles or more).  The two kernels take the same split for the same
+    sizes, so they agree bit for bit."""
     _check_kernel_inputs(q, k, v)
     b, lq, h, d = q.shape
     if (mb.device != q.device or mb.dtype != torch.float32 or tuple(mb.shape) != (b, h, lq)
             or not mb.is_contiguous()):
         raise ValueError(f"mb must be a contiguous fp32 ({b}, {h}, {lq}) tensor on {q.device}")
     out = torch.empty_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), mb.data_ptr(),
-            b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype))
     with torch.cuda.device(q.device):
-        if d in WGMMA_HEAD_DIMS:
-            _raise_on_wgmma(_lib_wgmma().drt_flash_wgmma_bounded(*args, int(pipelined),
-                                                                 _stream(q.device)),
-                            "flash_attention_bounded")
-        else:
-            _raise_on(_lib().drt_flash_attention_bounded(*args, int(pipelined), _stream(q.device)),
-                      "flash_attention_bounded")
+        err = _lib_wgmma().drt_flash_wgmma_bounded(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), mb.data_ptr(),
+            b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype), int(pipelined),
+            -1 if key_split is None else int(key_split), _stream(q.device))
+    _raise_on_wgmma(err, "flash_attention_bounded")
     VARIANT_LAUNCHES["flash_attention_bounded_pipe" if pipelined
                      else "flash_attention_bounded"] += 1
     return out
+
+
+def bounded_key_split(q, k, *, pipelined: bool = True) -> bool:
+    """Whether kernel 6 (pipelined) or 7 splits the keys of these CUDA
+    inputs over 2-block clusters by default: at D = 256 and 512, with two
+    key tiles or more, where the B * H * ceil(Lq / 64) query tiles as pairs
+    of half-length blocks take fewer waves on the card than whole blocks
+    (the grid fits the card's resident pairs, or its last wave of whole
+    blocks is less than half full)."""
+    b, lq, h, d = q.shape
+    split = ctypes.c_int()
+    with torch.cuda.device(q.device):
+        err = _lib_wgmma().drt_flash_wgmma_key_split(b, lq, k.shape[1], h, d, int(pipelined),
+                                                     ctypes.byref(split))
+    _raise_on_wgmma(err, "bounded_key_split")
+    return bool(split.value)
 
 
 class Int8Operands(NamedTuple):

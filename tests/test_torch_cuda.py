@@ -7,10 +7,11 @@ a card and no JAX (tests/conftest.py imports JAX; skip it there):
 
 Every test is marked `cuda` and skips without a CUDA device.  Tolerances:
 the attention kernels compute in bf16 with fp32 softmax state and round
-where the plain version rounds (kernels 1 and 2 at every head dim and
-kernels 3, 6 and 7 at D = 64 and 128 on wgmma, the others on mma.sync), so
-outputs differ by about one bf16 ulp on a few elements: max |err| within
-2e-2 of max |plain| (no floor) and a relative L2 error within 1e-2; the
+where the plain version rounds (kernels 1, 2, 6 and 7 at every head dim
+and kernel 3 at D = 64 and 128 on wgmma, kernel 3 at 256 and 512 on
+mma.sync), so outputs differ by about one bf16 ulp on a few elements:
+max |err| within 2e-2 of max |plain| (no floor) and a relative L2 error
+within 1e-2; the
 int8 attention kernel is held to its plain version at the kernel's own key
 tile; the partial-stats kernel's m and l and the bounded kernels' outputs
 to the same limits, and the partial-stats kernel's output at D = 64 and 128
@@ -18,8 +19,9 @@ bitwise to the unbounded call's (one online body).  Kernel 6 is held
 bitwise to kernel 7 at every head dim: at D = 64 and 128 both are the
 wgmma body, which sums l per thread in key order and issues PV in k16
 order whatever the key tile (kernel 7 takes 128 keys a tile at D = 128,
-kernel 6 64), and at 256 and 512 both are the one mma.sync body, with the
-same operations in the same order per tile.  A bounded bf16 call is one headroom launch and one
+kernel 6 64), and at 256 and 512 both are the one schedule of the wide
+wgmma body, with the same key split for the same sizes.  A bounded bf16
+call is one headroom launch and one
 attention launch (kernels 1 and 2 in one grid) at every head dim, and every
 public route takes a strided view.  The W8A8 matmul kernel is
 bitwise equal to its plain version per channel (exact int32 core, the same
@@ -94,11 +96,16 @@ def test_onlinemax_forced(cuda):
     assert_close(got, tfa.flash_attention_plain(q, k, v, bounded=False))
 
 
-# The wgmma body of kernels 1, 2 and 6: ragged lengths (Lk not a multiple of the key tile,
+# The wgmma bodies of kernels 1, 2, 6 and 7: ragged lengths (Lk not a multiple of the key tile,
 # Lq not of the 64-row block), keys fewer than one tile, and enough blocks for
-# several waves of two blocks per SM on 132 SMs.
+# several waves of two blocks per SM on 132 SMs; at the wide heads (64- and
+# 32-key tiles at D = 256, 512) ragged lengths whose few blocks split the keys
+# of kernels 6 and 7 over 2-block clusters, and keys fewer than one tile,
+# which do not.
 WGMMA_CASES = [(2, 1000, 777, 4, 128), (2, 1000, 777, 4, 64), (1, 100, 40, 2, 128),
-               (1, 70, 100, 2, 64), (4, 1024, 1024, 32, 128), (3, 777, 1000, 16, 64)]
+               (1, 70, 100, 2, 64), (4, 1024, 1024, 32, 128), (3, 777, 1000, 16, 64),
+               (2, 1000, 777, 2, 256), (1, 100, 40, 2, 256), (1, 1000, 1200, 1, 512),
+               (1, 70, 20, 1, 512)]
 
 
 @pytest.mark.parametrize("b,lq,lk,h,d", WGMMA_CASES)
@@ -152,14 +159,17 @@ def test_bounded_call_takes_each_branch_through_its_kernel(cuda, b, lq, lk, h, d
 
 def test_kernel_occupancy(cuda):
     """No spills, and at least 8 warps per SM resident, for the wgmma kernels:
-    the launch of kernels 1 and 2 at every head dim, kernels 3, 6 and 7 at
-    D = 64 and 128, kernel 5, and kernel 4 per channel and grouped."""
+    the launch of kernels 1 and 2 and kernels 6 and 7 at every head dim,
+    kernel 3 at D = 64 and 128, kernel 5, and kernel 4 per channel and
+    grouped."""
     occs = {(kernel, d, pv8): tfa.kernel_occupancy(kernel, d, pv8)
             for kernel, d, pv8 in (("attention", 64, False), ("attention", 128, False),
                                    ("attention", 256, False), ("attention", 512, False),
                                    ("partial", 64, False), ("partial", 128, False),
                                    ("bounded_pipe", 64, False), ("bounded_pipe", 128, False),
                                    ("bounded", 64, False), ("bounded", 128, False),
+                                   ("bounded_pipe", 256, False), ("bounded_pipe", 512, False),
+                                   ("bounded", 256, False), ("bounded", 512, False),
                                    ("int8", 64, False), ("int8", 128, False),
                                    ("int8", 128, True), ("int8", 256, False),
                                    ("int8", 256, True))}
@@ -401,7 +411,8 @@ def test_partial_kernel_matches_plain(cuda, b, lq, lk, h, d, q_scale):
         assert_close(got_x, want_x)
 
 
-@pytest.mark.parametrize("b,lq,lk,h,d", [c for c in PARTIAL_CASES if c[4] in tfa.WGMMA_HEAD_DIMS])
+@pytest.mark.parametrize("b,lq,lk,h,d", [c for c in PARTIAL_CASES
+                                         if c[4] in tfa.PARTIAL_WGMMA_HEAD_DIMS])
 @pytest.mark.parametrize("q_scale", [1.0, 30.0])
 def test_partial_kernel_out_is_the_unbounded_call(cuda, b, lq, lk, h, d, q_scale):
     """At D = 64, 128 kernel 3 is kernel 2's online body plus the stores of m
@@ -425,8 +436,9 @@ def test_bounded_kernels_match_plain(cuda, b, lq, lk, h, d, aligned):
                                     "flash_attention_bounded": 1}
     assert sum(tfa.LAUNCHES.values()) == 0
     assert tfa.branch_counts(cuda) == {"noshift": 0, "online": 0}
-    # One body at each head dim (wgmma at 64 and 128, mma.sync at 256 and
-    # 512), the same operations in the same order per tile.
+    # One wgmma body at each head dim: at 64 and 128 l summed in key order
+    # and PV issued in k16 order whatever the tile, at 256 and 512 one
+    # schedule with the same key split.
     assert torch.equal(pipe, shift)
     assert_close(shift, tfa.flash_attention_bounded_plain(q, k, v))
     if aligned:  # the shift keeps the bounded softmax exact where exp2(s) overflows
@@ -449,6 +461,50 @@ def test_wgmma_kernel6_matches_plain_and_kernel7(cuda, b, lq, lk, h, d, aligned)
     assert tfa.VARIANT_LAUNCHES["flash_attention_bounded"] == 1
     assert_close(shift, tfa.flash_attention_bounded_plain(q, k, v, mb))
     assert torch.equal(got, shift)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", [(1, 4096, 4096, 1, 512), (1, 1000, 1200, 1, 512),
+                                         (1, 1000, 777, 2, 256)])
+def test_wide_bounded_key_split_matches_plain(cuda, b, lq, lk, h, d):
+    """Kernels 6 and 7 at the wide heads with the keys split over 2-block
+    clusters and without: each within the bf16 tolerance of the plain
+    version, the split the default at these shapes, and each
+    mode the same bits run after run (the merge adds in one fixed order)."""
+    q, k, v = qkv(cuda, b, lq, lk, h, d, seed=lq + lk + d + 4)
+    mb = tfa.row_bound(q, k)
+    want = tfa.flash_attention_bounded_plain(q, k, v, mb)
+    assert tfa.bounded_key_split(q, k, pipelined=True)
+    assert tfa.bounded_key_split(q, k, pipelined=False)
+    for pipelined in (True, False):
+        split = tfa.flash_attention_bounded_kernel(q, k, v, mb, pipelined=pipelined,
+                                                   key_split=True)
+        whole = tfa.flash_attention_bounded_kernel(q, k, v, mb, pipelined=pipelined,
+                                                   key_split=False)
+        assert_close(split, want)
+        assert_close(whole, want)
+        assert torch.equal(split, tfa.flash_attention_bounded_kernel(q, k, v, mb,
+                                                                     pipelined=pipelined))
+        assert torch.equal(split, tfa.flash_attention_bounded_kernel(q, k, v, mb,
+                                                                     pipelined=pipelined,
+                                                                     key_split=True))
+
+
+def test_key_split_only_where_it_can_run(cuda):
+    """The split by default where pairs of half-length blocks take fewer
+    waves (5 blocks at (1, 300, 300, 1, 512); 320, 2.4 waves of whole
+    blocks on 132 SMs, at (5, 4096, 1, 512)), not where the waves come out
+    even (256 blocks at (2, 1024, 8, 256)) or the keys fill one tile; a
+    forced split is refused there and below D = 256."""
+    for shape, default in (((2, 1024, 1024, 8, 256), False), ((1, 300, 20, 1, 512), False),
+                           ((1, 300, 40, 2, 128), False), ((1, 300, 300, 1, 512), True),
+                           ((5, 4096, 4096, 1, 512), True)):
+        q, k, v = qkv(cuda, *shape)
+        assert tfa.bounded_key_split(q, k) == default, shape
+    for shape in ((1, 300, 20, 1, 512), (1, 300, 300, 2, 128)):
+        q, k, v = qkv(cuda, *shape)
+        with pytest.raises(RuntimeError, match="key split"):
+            tfa.flash_attention_bounded_kernel(q, k, v, tfa.row_bound(q, k), pipelined=True,
+                                               key_split=True)
 
 
 def band_qkv(device):

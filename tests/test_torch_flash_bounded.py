@@ -24,8 +24,9 @@ mode in fp32 at 2e-5:
   (ROADMAP.md section 3); rows whose overshoot is under 105 agree.
 
 tests/test_torch_cuda.py holds kernels 6 and 7 to this plain version on the
-card: kernel 6 bitwise to kernel 7 at head dims 256 and 512 (one mma.sync
-body), within the bf16 tolerance at 64 and 128 (kernel 6 on wgmma)."""
+card within the bf16 tolerance, and kernel 6 bitwise to kernel 7 at every
+head dim (wgmma bodies: at 256 and 512 one schedule, with or without the
+key split)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,7 +39,7 @@ from diffusionrenderer_tpu_torch.ops import flash_attention as tfa
 from diffusionrenderer_tpu_torch.ops.attention import attention
 
 CASES = [(1, 256, 256, 2, 128), (2, 200, 328, 1, 128), (1, 256, 300, 2, 64),
-         (1, 256, 256, 1, 512)]
+         (1, 256, 256, 1, 512), (1, 256, 320, 2, 256)]
 
 
 def random_qkv(b, lq, lk, h, d, seed=0, q_scale=1.0):
