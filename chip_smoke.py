@@ -13,9 +13,9 @@ Phases (any failure raises and exits non-zero):
                HDR codec (csrc/*.cc, host compiler, zlib); print ptxas's
                registers and spills, and the registers, spills, dynamic shared
                memory and resident blocks per SM of the launch holding kernels
-               1 and 2 and of kernels 6 and 7 (D = 64, 128, 256, 512), kernel 3
-               (D = 64, 128), kernel 5 (D = 128, 256) and kernel 4 (per
-               channel, grouped) from the CUDA runtime.  Fails on a spill or a
+               1 and 2 and of kernels 3, 6 and 7 (D = 64, 128, 256, 512),
+               kernel 5 (D = 128, 256, 512) and kernel 4 (per channel,
+               grouped) from the CUDA runtime.  Fails on a spill or a
                serialized wgmma in the wgmma kernels, and if one of them keeps
                fewer than 8 warps per SM resident.
   3. kernels - the bf16 attention kernels vs their plain PyTorch version,
@@ -70,14 +70,16 @@ Phases (any failure raises and exits non-zero):
                D = 256 at (2, 1024, 8, 256) and ragged, and fp32's underflow
                band; kernel 6 bitwise against kernel 7 at every head dim (the
                wgmma bodies; at D = 256, 512 one schedule), each case's key
-               split (kernels 6 and 7 at D = 256, 512 where pairs of
+               split (kernels 3, 6 and 7 at D = 256, 512 where pairs of
                half-length blocks take fewer waves) as expected, and the
-               unsplit launch against the plain version where it splits;
-               kernel 3's output bitwise against the
-               unbounded call at D = 64, 128 (kernel 2's online body).
+               unsplit launches against the plain version where they split,
+               kernel 3 also split where two key tiles allow it; kernel 3's
+               unsplit output bitwise against the unbounded call at every
+               head dim (kernel 2's online body).
   15. ring merge on one card - the flagship shape's keys in 4 shards,
                kernel 3 on each, merged by the ring's _merge and normalized,
-               against kernel 2's exact attention over all keys.
+               against kernel 2's exact attention over all keys; the same at
+               the VAE's decode shape (D = 512, the wide body).
   16. sharded main path - a one-rank NCCL group started here, then
                load_pipeline() + pipe.shard(make_mesh(1, data=1, seq=1,
                tensor=1), sp_attn='ring') + inverse_render(): every DiT
@@ -94,11 +96,14 @@ Phases (any failure raises and exits non-zero):
   18. timings of kernels 3, 6 and 7 at the DiT and flagship shapes and at
                the wide heads (the VAE's encode, decode and flagship shapes
                at D = 512, (2, 1024, 8, 256)), beside kernel 2, kernel 1's
-               wide-head launch and their yardsticks; kernels 6 and 7 also
-               with the key split forced on and off.
+               wide-head launch and their yardsticks (for kernel 3 the
+               PyTorch call that returns the output with its log-sum-exp,
+               where one takes the head dim); kernels 3, 6 and 7 also with
+               the key split forced on and off.
   19. kernel 5 at head dims 512 and 256 (the VAE's (1|5, 4096, 1, 512), a
-               ragged D=512 length, (2, 1024, 8, 256)), qk8 and qk8+pv8: vs its
-               plain version at the kernel's key tile and vs attention_xla;
+               ragged D=512 length, (2, 1024, 8, 256)), qk8 and qk8+pv8 (two
+               warpgroups at D = 512): vs its plain version at the kernel's
+               key tile and vs attention_xla;
                attention(backend='pallas_pv_int8') launches it; timed beside
                SDPA and kernel 1.
   20. envmap - a seeded 1024x2048 HDR panorama written with the port's .hdr
@@ -454,18 +459,18 @@ def build_phase():
             spills = [m.group(0) for m in re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
                       if m.group(1) != "0" or m.group(2) != "0"]
             check(not spills, f"{name}.cu: ptxas reports spills: {spills}")
-    # The launch holding kernels 1 and 2 and kernels 6 and 7 (the wide-head
-    # body at D = 256, 512), kernel 3, kernel 5, kernel 4: all on wgmma.
+    # The launch holding kernels 1 and 2, kernels 3, 6 and 7 (the wide-head
+    # body at D = 256, 512), kernel 5 (two warpgroups at D = 512), kernel 4:
+    # all on wgmma.
     occ = {}
     for d in (64, 128, 256, 512):
         occ[f"kernel12_attention_d{d}"] = fa.kernel_occupancy("attention", d)
         occ[f"kernel6_bounded_pipe_d{d}"] = fa.kernel_occupancy("bounded_pipe", d)
         occ[f"kernel7_bounded_d{d}"] = fa.kernel_occupancy("bounded", d)
-    for d in fa.PARTIAL_WGMMA_HEAD_DIMS:
         occ[f"kernel3_partial_d{d}"] = fa.kernel_occupancy("partial", d)
     occ["kernel4_w8a8_per_channel"] = qm.kernel_occupancy(False)
     occ["kernel4_w8a8_grouped"] = qm.kernel_occupancy(True)
-    for d in (128, 256):
+    for d in (128, 256, 512):
         for pv8 in (False, True):
             occ[f"kernel5_d{d}_{'pv8' if pv8 else 'qk8'}"] = fa.kernel_occupancy("int8", d, pv8)
     say("occupancy " + json.dumps(occ))
@@ -1412,12 +1417,13 @@ def variant_case(name, shape, *, rms_normed=True, seed=0, inputs=None, split=Fal
     """Kernels 3, 6 and 7 vs their plain versions on one input (make_qkv's,
     or `inputs`); kernel 6 bitwise against kernel 7 (the wgmma bodies: at D
     = 64 and 128 l summed in key order and PV issued in k16 order whatever
-    the tile, at 256 and 512 one schedule); `split`: whether kernels 6 and 7
-    split the keys over 2-block clusters here (D = 256, 512, where that
-    saves waves),
-    and where they do, the unsplit launch also against the plain version;
-    at D = 64 and 128 kernel 3's output bitwise against the unbounded call
-    (kernel 2's online body).  Returns the case's record."""
+    the tile, at 256 and 512 one schedule); `split`: whether kernels 3, 6
+    and 7 split the keys over 2-block clusters here (D = 256, 512, where
+    that saves waves), and where they do, the unsplit launches also against
+    the plain versions; at D = 256 and 512 kernel 3 with the split forced
+    on, where two key tiles allow it; kernel 3's unsplit output bitwise
+    against the unbounded call at every head dim (kernel 2's online body).
+    Returns the case's record."""
     import torch
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
 
@@ -1432,22 +1438,34 @@ def variant_case(name, shape, *, rms_normed=True, seed=0, inputs=None, split=Fal
     rec = {"case": name, "shape": list(shape), "launches": launches, "branches": branches,
            "kernel6_bitwise_kernel7": bool(torch.equal(pipe, shift)),
            "key_split": {"kernel6": fa.bounded_key_split(q, k, pipelined=True),
-                         "kernel7": fa.bounded_key_split(q, k, pipelined=False)}}
+                         "kernel7": fa.bounded_key_split(q, k, pipelined=False),
+                         "kernel3": fa.partial_key_split(q, k)}}
     oks = {}
     bounded_plain = fa.flash_attention_bounded_plain(q, k, v)
+    partial_plain = fa.flash_attention_partial_plain(q, k, v)
+    unsplit = fa.flash_attention_partial_kernel(q, k, v, key_split=False)
     keys = ["partial_out", "partial_m", "partial_l", "bounded", "kernel6", "kernel6_vs_kernel7"]
     gots = [out, m, l, shift, pipe, pipe]
-    wants = [*fa.flash_attention_partial_plain(q, k, v), bounded_plain, bounded_plain, shift]
+    wants = [*partial_plain, bounded_plain, bounded_plain, shift]
     if split:
         mb = fa.row_bound(q, k)
         keys += ["kernel6_unsplit", "kernel7_unsplit"]
         gots += [fa.flash_attention_bounded_kernel(q, k, v, mb, pipelined=p, key_split=False)
                  for p in (True, False)]
         wants += [bounded_plain, bounded_plain]
+        keys += ["partial_out_unsplit", "partial_m_unsplit", "partial_l_unsplit"]
+        gots += list(unsplit)
+        wants += list(partial_plain)
+    d = shape[-1]
+    if d in fa.WIDE_BLOCK_K and shape[2] > fa.WIDE_BLOCK_K[d]:  # two key tiles or more
+        keys += ["partial_out_split", "partial_m_split", "partial_l_split"]
+        gots += list(fa.flash_attention_partial_kernel(q, k, v, key_split=True))
+        wants += list(partial_plain)
     for key, got, want in zip(keys, gots, wants):
         err, rel, oks[key] = compare(got, want)
         rec[key] = {"max_abs_err": err, "tol": MAX_TOL * want.float().abs().max().item(),
                     "rel_l2": rel}
+    rec["partial_bitwise_online"] = bool(torch.equal(unsplit[0], fa.flash_attention(q, k, v)))
     say("  variants " + json.dumps(rec))
     check(all(oks.values()), f"{name}: kernel 3, 6 or 7 disagrees: {oks}")
     check(rec["kernel6_bitwise_kernel7"], f"{name}: kernel 6 is not bitwise equal to kernel 7")
@@ -1456,12 +1474,10 @@ def variant_case(name, shape, *, rms_normed=True, seed=0, inputs=None, split=Fal
                        "flash_attention_bounded_pipe": 1, "flash_attention_bounded": 1},
           f"{name}: launch counters wrong")
     check(branches == {"noshift": 0, "online": 0}, f"{name}: the branch tally moved")
-    check(rec["key_split"] == {"kernel6": split, "kernel7": split},
+    check(rec["key_split"] == {"kernel6": split, "kernel7": split, "kernel3": split},
           f"{name}: key split {rec['key_split']}, expected {split}")
-    if shape[-1] in fa.PARTIAL_WGMMA_HEAD_DIMS:
-        rec["partial_bitwise_online"] = bool(torch.equal(out, fa.flash_attention(q, k, v)))
-        check(rec["partial_bitwise_online"],
-              f"{name}: kernel 3's output is not bitwise the unbounded call's")
+    check(rec["partial_bitwise_online"],
+          f"{name}: kernel 3's unsplit output is not bitwise the unbounded call's")
     return rec
 
 
@@ -1487,15 +1503,15 @@ def variants_phase():
                    and "max_abs_err" in v) for r in recs), recs
 
 
-def ring_merge_phase(shards: int = 4):
+def ring_merge_phase(shape=FLAGSHIP_SHAPE, shards: int = 4, seed: int = 54):
     """The ring's merge on one card: kernel 3 over each of `shards` key
-    shards of the flagship shape, combined by parallel.ring_attention._merge
-    and normalized, against kernel 2 over all keys."""
+    shards of `shape`, combined by parallel.ring_attention._merge and
+    normalized, against kernel 2 over all keys."""
     import torch
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
     from diffusionrenderer_tpu_torch.parallel.ring_attention import _merge, _partial_attn_flash
 
-    q, k, v = make_qkv(FLAGSHIP_SHAPE, rms_normed=True, seed=54)
+    q, k, v = make_qkv(shape, rms_normed=True, seed=seed)
     lk = k.shape[1]
     state = None
     for i in range(shards):
@@ -1506,7 +1522,7 @@ def ring_merge_phase(shards: int = 4):
     got = (o / l.permute(0, 2, 1)[..., None]).to(q.dtype)
     want = fa.flash_attention_kernel(q, k, v, None)
     err, rel, ok = compare(got, want)
-    rec = {"shape": list(FLAGSHIP_SHAPE), "shards": shards, "max_abs_err": err,
+    rec = {"shape": list(shape), "shards": shards, "max_abs_err": err,
            "tol": MAX_TOL * want.float().abs().max().item(), "rel_l2": rel}
     say("ring_merge " + json.dumps(rec))
     check(ok, "ring merge of kernel-3 shards disagrees with kernel 2's exact attention")
@@ -1656,11 +1672,32 @@ def bounded_forward_phase(params):
     return rec
 
 
-# Kernels 3, 6 and 7 at the wide heads (kernels 6 and 7 on the wide wgmma
-# body, kernel 3 on mma.sync; no path launches them): the VAE's encode,
-# decode and flagship shapes at D = 512 and D = 256 at 8 heads; reps each.
+# Kernels 3, 6 and 7 at the wide heads (on the wide wgmma body; no render
+# launches them): the VAE's encode, decode and flagship shapes at D = 512
+# and D = 256 at 8 heads; reps each.
 WIDE_VARIANT_SHAPES = (("vae_encode_d512", VAE_ENC_SHAPE, 20), ("vae_decode_d512", VAE_DEC_SHAPE, 10),
                        ("flagship_vae_d512", FLAGSHIP_VAE_SHAPE, 3), ("d256", D256_SHAPE, 20))
+
+
+def library_lse(qt, kt, vt, reps: int):
+    """(ms, None) of PyTorch's one call returning attention's output with its
+    log-sum-exp (what kernel 3 returns, up to the log base) on (B, H, L, D)
+    views: the flash kernel where it takes the head dim (D <= 256), else the
+    memory-efficient one; (None, the refusal) where neither takes it."""
+    import torch
+
+    aten = torch.ops.aten
+    if qt.shape[-1] <= 256:
+        return time_ms(lambda: aten._scaled_dot_product_flash_attention(qt, kt, vt), reps), None
+    call = lambda: aten._scaled_dot_product_efficient_attention(  # noqa: E731
+        qt, kt, vt, None, True)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, (f"aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True) "
+                      f"refused D = {qt.shape[-1]}: {str(e).splitlines()[0][:200]}")
+    return time_ms(call, reps), None
 
 
 def variant_timings_phase():
@@ -1668,10 +1705,12 @@ def variant_timings_phase():
     at WIDE_VARIANT_SHAPES, their plain versions (2 heads at the flagship
     shape, the first batch row at the flagship VAE's), the row bound's
     pre-pass, and the yardsticks: aten._scaled_dot_product_flash_attention
-    (output with its log-sum-exp) for kernel 3, F.scaled_dot_product_attention
-    for kernels 6 and 7.  At the wide heads also kernel 1's launch (the
-    headroom rule picks no-shift on these inputs), and kernels 6 and 7 with
-    the key split forced on and off."""
+    (output with its log-sum-exp) for kernel 3 at D <= 256, at D = 512
+    aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True)
+    where the card's PyTorch takes that head dim (else None and the reason),
+    F.scaled_dot_product_attention for kernels 6 and 7.  At the wide heads
+    also kernel 1's launch (the headroom rule picks no-shift on these
+    inputs), and kernels 3, 6 and 7 with the key split forced on and off."""
     import torch
     from diffusionrenderer_tpu_torch.ops import flash_attention as fa
 
@@ -1689,11 +1728,10 @@ def variant_timings_phase():
                "kernel7_ms": time_ms(lambda: bounded(False), reps),
                "kernel2_ms": time_ms(lambda: fa.flash_attention_kernel(q, k, v, None), reps),
                "row_bound_ms": time_ms(lambda: fa.row_bound(q, k), reps),
-               # PyTorch's flash kernel (output and log-sum-exp) takes D <= 256.
-               "library_lse_ms": time_ms(
-                   lambda: torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt), reps)
-               if shape[-1] <= 256 else None,
                "library_ms": sdpa_ms(q, k, v, reps)}
+        rec["library_lse_ms"], note = library_lse(qt, kt, vt, reps)
+        if note:
+            rec["library_lse_note"] = note
         rec["kernel3_bound_ms"], rec["kernel3_bound_by"] = partial_bound(shape)
         rec["bounded_bound_ms"], rec["bounded_bound_by"] = bounded_bound(shape)
         if shape[-1] > 128:
@@ -1703,9 +1741,13 @@ def variant_timings_phase():
                                      else "online")
             rec["kernel1_ms"] = time_ms(lambda: fa.flash_attention_kernel(q, k, v, stats), reps)
             rec["key_split"] = fa.bounded_key_split(q, k)
+            rec["kernel3_key_split"] = fa.partial_key_split(q, k)
             for key, pipelined in (("kernel6", True), ("kernel7", False)):
                 for mode, split in (("split", True), ("unsplit", False)):
                     rec[f"{key}_{mode}_ms"] = time_ms(lambda: bounded(pipelined, split), reps)
+            for mode, split in (("split", True), ("unsplit", False)):
+                rec[f"kernel3_{mode}_ms"] = time_ms(
+                    lambda: fa.flash_attention_partial_kernel(q, k, v, key_split=split), reps)
             del stats
         if label == "flagship":
             q2, k2, v2 = (x[:, :, :2].contiguous() for x in (q, k, v))
@@ -1744,9 +1786,9 @@ def variant_timings_phase():
 
 def variant_records(var, occ, kernel6_shapes):
     """Rows 3, 6 and 7 of the kernel table: the DiT shape's numbers, the
-    flagship's beside them, and the wide heads' (kernel 3 on mma.sync,
-    kernels 6 and 7 on the wide wgmma body beside kernel 1's launch there);
-    kernel 6 also at phase 23's shapes."""
+    flagship's beside them, and the wide heads' (on the wide wgmma body,
+    beside kernel 1's launch there and, for kernel 3, kernel 2's online
+    one); kernel 6 also at phase 23's shapes."""
     src = "diffusionrenderer_tpu_torch/csrc/flash_attention_wgmma.cu"
     dit, flag = var["timings"]["dit"], var["timings"]["flagship"]
     sharded = var["sharded"]
@@ -1776,11 +1818,14 @@ def variant_records(var, occ, kernel6_shapes):
     return [
         {"name": "flash_attention_partial", **common,
          "source": src + " partial_kernel<D> (attend<D, kPartial>, kernel 2's online body)",
-         "source_d256_d512": "diffusionrenderer_tpu_torch/csrc/flash_attention.cu attend<D>",
+         "source_d256_d512": src + " partial_kernel_wide<D> (attend_wide<D, kPartial>, kernel "
+                                   "2's wide online schedule; keys split over 2-block clusters "
+                                   "with the rescaling merge where partial_key_split says so)",
          "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:121 (_flash_kernel_partial) "
                      "and :384 (_flash_kernel_partial_bias), via flash_attention_partial :766",
          "launches": sharded["launches"]["flash_attention_partial"],
          "occupancy_d128": occ["kernel3_partial_d128"],
+         "occupancy_d512": occ["kernel3_partial_d512"],
          "vs_library": dit["kernel3_vs_library"],
          "sharded_render_warm": {k: sharded["warm"][k] for k in ("median_s", "q1_s", "q3_s",
                                                                   "median_step_ms")},
@@ -1791,8 +1836,15 @@ def variant_records(var, occ, kernel6_shapes):
          "flagship": {k: flag[k] for k in ("kernel3_ms", "kernel3_bound_ms", "library_lse_ms",
                                            "kernel3_plain_ms_2_heads", "kernel2_ms",
                                            "kernel3_vs_library")},
-         "mma_sync_d256_d512": wide("kernel3_ms", "kernel3_bound_ms", "kernel3_plain_ms",
-                                    "kernel3_plain_ms_1_row", "library_lse_ms")},
+         "wide_d256_d512": {
+             "by_shape": wide("kernel3_ms", "kernel3_split_ms", "kernel3_unsplit_ms",
+                              "kernel3_key_split", "kernel2_ms", "kernel3_bound_ms",
+                              "kernel3_bound_by", "kernel3_plain_ms", "kernel3_plain_ms_1_row",
+                              "library_lse_ms", "library_lse_note", "kernel3_vs_library"),
+             "key_split_phase_14": {c["case"]: c["key_split"]["kernel3"] for c in var["cases"]
+                                    if c["shape"][-1] > 128},
+             "ring_merge_d512": var["ring_merge_d512"],
+             "earlier": "PERF.md section 6 (the times of the mma.sync body this replaced)"}},
         {"name": "flash_attention_bounded_pipe", **common,
          "source": src + " bounded_kernel<D, kBoundedPipe> (D = 64, 128)",
          "replaces": "diffusionrenderer_tpu/ops/flash_attention.py:262 (_flash_kernel_bounded_pipe)",
@@ -1845,7 +1897,7 @@ ENV_TOL = 2.0 ** -8
 
 def wide_int8_phase():
     """Kernel 5 at D = 512 and 256 vs its plain version at the kernel's own
-    key tile (32 keys at D = 512, 64 at D = 256) and vs exact attention
+    key tile (64 keys) and vs exact attention
     (within 10% of the JAX tiling's error), qk8 and qk8+pv8; the
     attention(backend='pallas_pv_int8') path at each head dim, its launches
     counted from 0; timings beside SDPA, kernel 1 and the bound."""
@@ -1886,14 +1938,17 @@ def wide_int8_phase():
             "timings": timings}
 
 
-def wide_int8_records(wide):
+def wide_int8_records(wide, occ):
     """Row 5 at D = 512 (the VAE decode shape) and D = 256, int8 QK^T + PV."""
     recs = []
     for d, label, others in ((512, "vae_decode_d512", ("vae_encode_d512",)), (256, "d256", ())):
         t = wide["timings"][label]
         recs.append({
             "name": f"flash_attention_int8_d{d}", "route": "cuda",
-            "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_int8.cu",
+            "source": "diffusionrenderer_tpu_torch/csrc/flash_attention_int8.cu "
+                      f"flash_int8_wgmma_kernel<{d}, pv8>"
+                      + (" (two warpgroups, each the whole 512-deep int8 QK^T)" if d == 512
+                         else ""),
             "replaces": f"diffusionrenderer_tpu/ops/flash_attention.py:317 (_flash_kernel_int8) "
                         f"at head dim {d}",
             "launches": wide["path_launches"][d],
@@ -1903,6 +1958,7 @@ def wide_int8_records(wide):
             "bound_ms": t["pv8_bound_ms"], "bound_by": t["pv8_bound_by"],
             "library_ms": t["library_ms"], "library": "F.scaled_dot_product_attention bf16",
             "shape": t["shape"], "prepass_ms": t["pv8_prepass_ms"],
+            "occupancy": {k: v for k, v in occ.items() if k.startswith(f"kernel5_d{d}")},
             "timings": {k: wide["timings"][k] for k in (label, *others)}})
     return recs
 
@@ -3905,6 +3961,7 @@ def main() -> int:
     say(f"  phase 14: {time.perf_counter() - t:.1f} s")
     t = phase("15 ring merge of kernel-3 shards on one card")
     var["ring_merge"] = ring_merge_phase()
+    var["ring_merge_d512"] = ring_merge_phase(VAE_DEC_SHAPE, seed=66)
     say(f"  phase 15: {time.perf_counter() - t:.1f} s")
     t = phase("16 sharded main path: one-rank NCCL mesh, sp_attn='ring'")
     pipe, mesh, var["sharded"] = sharded_main_path_phase(main_rec["warm"]["median_s"], warm=5)
@@ -3942,7 +3999,7 @@ def main() -> int:
         rec["launches_forward_render"] = fwd["first"]["launches"][name]
     for rec in records[:2]:
         rec["launches_by_branch_forward_render"] = fwd["first"]["branches"]
-    records += wide_int8_records(wide)
+    records += wide_int8_records(wide, occ)
     say(f"  phase 23: {time.perf_counter() - t:.1f} s")
     t = phase("24 checkpoints: full-width DiT and VAE files through load_pipeline")
     pipe, ckpt = checkpoint_phase()

@@ -23,25 +23,38 @@
 // the V operand read once; at the DiT's (5, 1024, 32, 128) it is operation
 // bound, with the per-score fp32 work (dequant, max, exp2, sum) next.
 //
-// D = 64, 128, 256: the wgmma body (flash_int8_wgmma_kernel), BK = 64.
-//   * one warpgroup owns 64 query rows; the int8 q tile, the int8 K tiles and
-//     the V tiles arrive by TMA (64- or 128-byte swizzle, rows past L
-//     zero-filled) into shared memory, K and V in rings of S stages with one
-//     mbarrier each, issued by thread 0 ahead of use;
+// One wgmma body at every head dim (flash_int8_wgmma_kernel), BK = 64.
+//   * a block owns 64 query rows: one warpgroup at D = 64, 128, 256; two at
+//     D = 512, where a 64-row fp32 accumulator over all of D would take 256
+//     registers a thread, so each warpgroup owns D/2 = 256 output columns;
+//   * the int8 q tile, the int8 K tiles and the V tiles arrive by TMA (64-
+//     or 128-byte swizzle, rows past L zero-filled) into shared memory, K
+//     and V in rings of S stages with one mbarrier each, issued by thread 0
+//     ahead of use;
 //   * QK^T is wgmma m64n64k32 .s32.s8.s8 with both operands K-major in
-//     shared memory (int8 q and k are D-contiguous);
-//   * bf16 PV (qk8): bf16 P is the register A operand of wgmma m64n{D}k16,
-//     V read MN-major by descriptor (the transpose bit), as in kernel 2;
+//     shared memory (int8 q and k are D-contiguous).  At D = 512 each
+//     warpgroup forms the whole 512-deep product itself: int32 sums are
+//     exact, so both hold the same S, hence the same m, l and P, with no
+//     exchange of partial scores and no barrier for one; the doubled int8
+//     QK^T costs what one bf16 PV of its columns does.  Summing the two
+//     warpgroups' int32 partials through shared memory instead measured
+//     slower on the H100 at int8 PV, and would not fit at BK = 64 beside
+//     qk8's two 64 KB bf16 V stages (Q 32 KB, K 2 x 32 KB, V 2 x 64 KB: 224
+//     KB of the 227 KB a block may have); each thread holds what one
+//     warpgroup at D = 256 holds;
+//   * bf16 PV (qk8): bf16 P is the register A operand of wgmma m64n{DS}k16
+//     over the warpgroup's DS output columns, V read MN-major by descriptor
+//     (the transpose bit), as in kernel 2;
 //   * int8 PV (pv8): int8 P is the register A operand of wgmma m64n{N}k32
-//     .s32.s8.s8 (N = D, or 64 at a time at D = 256, where a D-wide int32
-//     product would not fit beside the fp32 accumulator), and B is the
-//     pre-pass's transposed int8 V, (B, H, D, lk_pad), K-major.  wgmma's
-//     8-bit A fragment is, per warp, mma.sync m16n8k32's, and its s32
-//     accumulator mma.sync's C fragment, so the pre-pass's key permutation
-//     of each 32-key group (position 16h + 4t + 2a + b holds key
+//     .s32.s8.s8 (N = DS at D <= 128, 32 at a time where DS = 256, so a
+//     DS-wide int32 product never sits beside the fp32 accumulator), and B
+//     is the pre-pass's transposed int8 V, (B, H, D, lk_pad), K-major.
+//     wgmma's 8-bit A fragment is, per warp, mma.sync m16n8k32's, and its
+//     s32 accumulator mma.sync's C fragment, so the pre-pass's key
+//     permutation of each 32-key group (position 16h + 4t + 2a + b holds key
 //     16h + 8a + 2t + b) still lets each thread pack its own four P values;
-//   * bf16 PV, and int8 PV at D = 256: tile j's QK^T and tile j-1's PV are
-//     in flight together while tile j's dequant and softmax run
+//   * bf16 PV, and int8 PV where DS = 256: tile j's QK^T and tile j-1's PV
+//     are in flight together while tile j's dequant and softmax run
 //     (FlashAttention-3's intra-warpgroup overlap), two stages;
 //   * int8 PV at D <= 128: one tile at a time (QK^T, softmax, PV, the
 //     per-tile dequant acc = acc * alpha + f32(pv) * sv), three stages.  The
@@ -49,17 +62,11 @@
 //     and the next scores (221 registers: two blocks per SM); this one takes
 //     167, three blocks per SM overlap each other, and it measured faster
 //     on the H100;
-//   * int32 <-> fp32 conversions of the scores, the P codes and the int8 PV
-//     go through the FP32 and integer pipes (exact for |x| < 2^22), not the
-//     quarter-rate conversion unit; exp2 is one SFU instruction.
-// D = 512: the mma.sync body (flash_int8_mma_kernel), BK = 32.  A warp
-//   (wr, wd) owns query rows wr*16..+16 and the head-dim slice wd*128..+128:
-//   it forms the int32 partial QK^T of its slice on mma.sync m16n8k32, the
-//   four partials of a row group are summed in shared memory (exact int32
-//   sums, so every warp holds the same S, m, l and P), and it accumulates PV
-//   for its own 128 output columns; K and V double-buffered with cp.async,
-//   int8 V read transposed with the same key permutation.  It is level with
-//   SDPA at the VAE decode shape and stays as it was.
+//   * int32 <-> fp32 conversions of the scores (at D <= 256), the P codes and
+//     the int8 PV go through the FP32 and integer pipes (exact for |x| <
+//     2^22), not the quarter-rate conversion unit; exp2 is one SFU
+//     instruction.  At D = 512 a score's int32 sum reaches 512 * 127^2 >
+//     2^22, so it takes the conversion unit.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -68,37 +75,13 @@
 
 #include "hopper.cuh"
 
-
 namespace {
 
 using hopper::smem_u32;
 
-constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;  // the JAX kernel's padded-key bias
 constexpr float kLog2_127 = 6.988684686772166f;
 constexpr int kUnsupported = 10002;
-
-// The mma.sync body, kept for D = 512 (level with SDPA at the VAE decode
-// shape).  WD: warps splitting the head dim; BK: keys per shared-memory tile.
-template <int D> struct Tile;
-template <> struct Tile<512> { static constexpr int WD = 4, BK = 32; };
-
-template <int D, bool kPv8> struct Cfg {
-  static constexpr int WD = Tile<D>::WD;
-  static constexpr int BK = Tile<D>::BK;
-  static constexpr int WR = 4 / WD;                    // warps along the query rows
-  static constexpr int BQ = 16 * WR;                   // query rows per block
-  static constexpr int DS = D / WD;                    // head-dim slice of one warp
-  static constexpr int KPITCH = D + 16;                // int8 K rows (bytes)
-  static constexpr int VPITCH = kPv8 ? BK + 16 : (D + 8) * 2;  // bytes per V smem row
-  static constexpr int VROWS = kPv8 ? D : BK;
-  static constexpr int RED_PITCH = BK + 4;             // int32 partial S rows
-  static constexpr int k_bytes = BK * KPITCH;
-  static constexpr int v_bytes = VROWS * VPITCH;
-  static constexpr int stage_bytes = k_bytes + v_bytes + BK * 4;  // + the tile's sk
-  static constexpr int red_bytes = WD > 1 ? WR * WD * 16 * RED_PITCH * 4 : 0;
-  static constexpr size_t smem_bytes = size_t(2) * stage_bytes + red_bytes + D * 4;  // + sv
-};
 
 struct Args {
   const int8_t* q;     // (B, Lq, H, D)
@@ -111,363 +94,29 @@ struct Args {
   int B, Lq, Lk, H, lk_pad;
 };
 
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Four p in [0, 127] -> four int8 codes (round half to even), lowest key first.
-__device__ __forceinline__ uint32_t pack_s8(float a, float b, float c, float d) {
-  return (uint32_t)(__float2int_rn(a) & 0xff) | ((uint32_t)(__float2int_rn(b) & 0xff) << 8) |
-         ((uint32_t)(__float2int_rn(c) & 0xff) << 16) | ((uint32_t)(__float2int_rn(d) & 0xff) << 24);
-}
-
-__device__ __forceinline__ uint32_t load_q4(const int8_t* p, bool valid) {
-  return valid ? *reinterpret_cast<const uint32_t*>(p) : 0u;
-}
-
-template <int D, bool kPv8>
-__global__ void __launch_bounds__(kThreads) flash_int8_mma_kernel(Args p) {
-  using C = Cfg<D, kPv8>;
-  constexpr int BK = C::BK, DS = C::DS;
-  constexpr int NS = BK / 8;   // S n-tiles per key tile
-  constexpr int KS = DS / 32;  // k32 steps of QK^T over the warp's D slice
-  constexpr int NO = DS / 8;   // output n-tiles of the warp's D slice
-  static_assert(NO % 2 == 0 && (BK == 32 || BK == 64), "tile shapes");
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* red = reinterpret_cast<int*>(smem + 2 * C::stage_bytes);
-  float* sv_s = reinterpret_cast<float*>(smem + 2 * C::stage_bytes + C::red_bytes);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp / C::WD, wd = warp % C::WD;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int r0 = blockIdx.x * C::BQ + wr * 16 + g, r1 = r0 + 8;
-  const bool ok0 = r0 < p.Lq, ok1 = r1 < p.Lq;
-  const long long row_stride = (long long)p.H * D;
-  const long long bh = (long long)b * p.H + h;
-  const int8_t* qb = p.q + (long long)b * p.Lq * row_stride + (long long)h * D;
-  const int8_t* kb = p.k + (long long)b * p.Lk * row_stride + (long long)h * D;
-  const float* skb = p.sk + bh * p.Lk;
-
-  if constexpr (kPv8) {
-    for (int c = tid; c < D; c += kThreads) sv_s[c] = p.sv[bh * D + c];
-  }
-
-  // q fragments (A operand) for this warp's 16 rows and D slice stay in registers.
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int d = wd * DS + ks * 32 + 4 * t4;
-    qf[ks][0] = load_q4(qb + (long long)r0 * row_stride + d, ok0);
-    qf[ks][1] = load_q4(qb + (long long)r1 * row_stride + d, ok1);
-    qf[ks][2] = load_q4(qb + (long long)r0 * row_stride + d + 16, ok0);
-    qf[ks][3] = load_q4(qb + (long long)r1 * row_stride + d + 16, ok1);
-  }
-  const float sq0 = ok0 ? p.sq[bh * p.Lq + r0] : 0.f;
-  const float sq1 = ok1 ? p.sq[bh * p.Lq + r1] : 0.f;
-
-  auto load_tile = [&](int stage, int tile) {
-    unsigned char* Ks = smem + stage * C::stage_bytes;
-    unsigned char* Vs = Ks + C::k_bytes;
-    float* sks = reinterpret_cast<float*>(Vs + C::v_bytes);
-    const int k0 = tile * BK;
-    constexpr int KCPR = D / 16;  // 16-byte chunks per K row
-    for (int c = tid; c < BK * KCPR; c += kThreads) {
-      const int r = c / KCPR, col = (c % KCPR) * 16;
-      const bool ok = k0 + r < p.Lk;
-      cp_async_16(smem_u32(Ks + r * C::KPITCH + col),
-                  kb + (ok ? (long long)(k0 + r) * row_stride + col : 0), ok);
-    }
-    if constexpr (kPv8) {
-      // Transposed int8 V: D channel rows of BK (permuted) keys; lk_pad is a
-      // multiple of BK, zero past Lk, so every chunk is in bounds.
-      const int8_t* vt = static_cast<const int8_t*>(p.v) + bh * D * (long long)p.lk_pad + k0;
-      constexpr int VCPR = BK / 16;
-      for (int c = tid; c < D * VCPR; c += kThreads) {
-        const int r = c / VCPR, col = (c % VCPR) * 16;
-        cp_async_16(smem_u32(Vs + r * C::VPITCH + col), vt + (long long)r * p.lk_pad + col, true);
-      }
-    } else {
-      const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) +
-                                (long long)b * p.Lk * row_stride + (long long)h * D;
-      constexpr int VCPR = D / 8;  // 16-byte chunks (8 bf16) per V row
-      for (int c = tid; c < BK * VCPR; c += kThreads) {
-        const int r = c / VCPR, col = (c % VCPR) * 8;
-        const bool ok = k0 + r < p.Lk;
-        cp_async_16(smem_u32(Vs + r * C::VPITCH + col * 2),
-                    vb + (ok ? (long long)(k0 + r) * row_stride + col : 0), ok);
-      }
-    }
-    cp_async_commit();
-    if (tid < BK) sks[tid] = k0 + tid < p.Lk ? skb[k0 + tid] : 0.f;
-  };
-
-  float o[NO][4];
-#pragma unroll
-  for (int t = 0; t < NO; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  // ldmatrix.x4 lane addresses of two 8-row groups x two 16-byte columns.
-  const int kb_row = (lane & 7) + (lane >> 4) * 8, kb_col = ((lane >> 3) & 1) * 16;
-  const int nk = (p.Lk + BK - 1) / BK;
-  load_tile(0, 0);
-  for (int j = 0; j < nk; ++j) {
-    if (j + 1 < nk) {
-      load_tile((j + 1) & 1, j + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const unsigned char* Ks = smem + (j & 1) * C::stage_bytes;
-    const unsigned char* Vs = Ks + C::k_bytes;
-    const float* sks = reinterpret_cast<const float*>(Vs + C::v_bytes);
-
-    // S = qi ki^T in int32 over this warp's D slice.
-    int si[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) si[n][0] = si[n][1] = si[n][2] = si[n][3] = 0;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int n = 0; n < NS; n += 2) {
-        uint32_t r[4];
-        ldmatrix_x4(r, smem_u32(Ks + (n * 8 + kb_row) * C::KPITCH + wd * DS + ks * 32 + kb_col));
-        mma_s8(si[n], qf[ks], r[0], r[1]);
-        mma_s8(si[n + 1], qf[ks], r[2], r[3]);
-      }
-    }
-    if constexpr (C::WD > 1) {
-      // The D-slice partials of a row group, summed in shared memory: exact
-      // int32 sums, so every warp of the group holds the same S.
-      int* mine = red + (wr * C::WD + wd) * 16 * C::RED_PITCH;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const int col = n * 8 + 2 * t4;
-        mine[g * C::RED_PITCH + col] = si[n][0];
-        mine[g * C::RED_PITCH + col + 1] = si[n][1];
-        mine[(g + 8) * C::RED_PITCH + col] = si[n][2];
-        mine[(g + 8) * C::RED_PITCH + col + 1] = si[n][3];
-      }
-      __syncthreads();
-      const int* grp = red + wr * C::WD * 16 * C::RED_PITCH;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int idx = (g + (e >> 1) * 8) * C::RED_PITCH + n * 8 + 2 * t4 + (e & 1);
-          int acc = 0;
-#pragma unroll
-          for (int w = 0; w < C::WD; ++w) acc += grp[w * 16 * C::RED_PITCH + idx];
-          si[n][e] = acc;
-        }
-      }
-    }
-    // The rank-1 dequant (s * sq_i) * sk_j.
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const int key = n * 8 + 2 * t4;
-      const float k0s = sks[key], k1s = sks[key + 1];
-      s[n][0] = __fmul_rn(__fmul_rn(__int2float_rn(si[n][0]), sq0), k0s);
-      s[n][1] = __fmul_rn(__fmul_rn(__int2float_rn(si[n][1]), sq0), k1s);
-      s[n][2] = __fmul_rn(__fmul_rn(__int2float_rn(si[n][2]), sq1), k0s);
-      s[n][3] = __fmul_rn(__fmul_rn(__int2float_rn(si[n][3]), sq1), k1s);
-    }
-    if ((j + 1) * BK > p.Lk) {  // ragged last tile: keys >= Lk
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (j * BK + n * 8 + 2 * t4 + (e & 1) >= p.Lk) s[n][e] = kNegInf;
-    }
-
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float a0 = exp2f(__fsub_rn(m0, mx0)), a1 = exp2f(__fsub_rn(m1, mx1));
-    m0 = mx0;
-    m1 = mx1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float d = __fsub_rn(s[n][e], e < 2 ? m0 : m1);
-        s[n][e] = exp2f(kPv8 ? __fadd_rn(d, kLog2_127) : d);
-      }
-      ps0 = __fadd_rn(ps0, __fadd_rn(s[n][0], s[n][1]));
-      ps1 = __fadd_rn(ps1, __fadd_rn(s[n][2], s[n][3]));
-    }
-    l0 = __fadd_rn(__fmul_rn(l0, a0), ps0);
-    l1 = __fadd_rn(__fmul_rn(l1, a1), ps1);
-
-    if constexpr (kPv8) {
-      // P as int8 A fragments, in the permuted key order of transposed V.
-      uint32_t pa[BK / 32][4];
-#pragma unroll
-      for (int kp = 0; kp < BK / 32; ++kp) {
-        const int n = 4 * kp;
-        pa[kp][0] = pack_s8(s[n][0], s[n][1], s[n + 1][0], s[n + 1][1]);
-        pa[kp][1] = pack_s8(s[n][2], s[n][3], s[n + 1][2], s[n + 1][3]);
-        pa[kp][2] = pack_s8(s[n + 2][0], s[n + 2][1], s[n + 3][0], s[n + 3][1]);
-        pa[kp][3] = pack_s8(s[n + 2][2], s[n + 2][3], s[n + 3][2], s[n + 3][3]);
-      }
-      // acc = acc * alpha + f32(P_i8 V_i8) * sv for output n-tile t.
-      auto dequant_acc = [&](float (&acc)[4], const int (&pv)[4], int t) {
-        const int c = wd * DS + t * 8 + 2 * t4;
-        const float sv0 = sv_s[c], sv1 = sv_s[c + 1];
-        acc[0] = __fadd_rn(__fmul_rn(acc[0], a0), __fmul_rn(__int2float_rn(pv[0]), sv0));
-        acc[1] = __fadd_rn(__fmul_rn(acc[1], a0), __fmul_rn(__int2float_rn(pv[1]), sv1));
-        acc[2] = __fadd_rn(__fmul_rn(acc[2], a1), __fmul_rn(__int2float_rn(pv[2]), sv0));
-        acc[3] = __fadd_rn(__fmul_rn(acc[3], a1), __fmul_rn(__int2float_rn(pv[3]), sv1));
-      };
-      const unsigned char* Vw = Vs + wd * DS * C::VPITCH;  // this warp's channel rows
-      if constexpr (BK == 64) {
-        const int v_row = lane & 7, v_col = (lane >> 3) * 16;
-#pragma unroll
-        for (int t = 0; t < NO; ++t) {
-          uint32_t r[4];  // b0, b1 of key steps 0 and 1 for channels 8t..8t+7
-          ldmatrix_x4(r, smem_u32(Vw + (t * 8 + v_row) * C::VPITCH + v_col));
-          int pv[4] = {0, 0, 0, 0};
-          mma_s8(pv, pa[0], r[0], r[1]);
-          mma_s8(pv, pa[1], r[2], r[3]);
-          dequant_acc(o[t], pv, t);
-        }
-      } else {
-#pragma unroll
-        for (int t = 0; t < NO; t += 2) {
-          uint32_t r[4];  // b0, b1 of the one key step for channels 8t.. and 8(t+1)..
-          ldmatrix_x4(r, smem_u32(Vw + (t * 8 + kb_row) * C::VPITCH + kb_col));
-          int pv0[4] = {0, 0, 0, 0}, pv1[4] = {0, 0, 0, 0};
-          mma_s8(pv0, pa[0], r[0], r[1]);
-          mma_s8(pv1, pa[0], r[2], r[3]);
-          dequant_acc(o[t], pv0, t);
-          dequant_acc(o[t + 1], pv1, t + 1);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int t = 0; t < NO; ++t) {
-        o[t][0] = __fmul_rn(o[t][0], a0);
-        o[t][1] = __fmul_rn(o[t][1], a0);
-        o[t][2] = __fmul_rn(o[t][2], a1);
-        o[t][3] = __fmul_rn(o[t][3], a1);
-      }
-      const __nv_bfloat16* Vt = reinterpret_cast<const __nv_bfloat16*>(Vs);
-      constexpr int VP = C::VPITCH / 2;  // pitch in bf16 elements
-      const int vkey = (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int vcol = wd * DS + (lane >> 4) * 8;
-#pragma unroll
-      for (int kp = 0; kp < BK / 16; ++kp) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kp][0], s[2 * kp][1]),
-                               pack_bf16(s[2 * kp][2], s[2 * kp][3]),
-                               pack_bf16(s[2 * kp + 1][0], s[2 * kp + 1][1]),
-                               pack_bf16(s[2 * kp + 1][2], s[2 * kp + 1][3])};
-        const __nv_bfloat16* vrow = Vt + (kp * 16 + vkey) * VP + vcol;
-#pragma unroll
-        for (int t = 0; t < NO; t += 2) {
-          uint32_t r[4];
-          ldmatrix_x4_trans(r, smem_u32(vrow + t * 8));
-          mma_bf16(o[t], a, r[0], r[1]);
-          mma_bf16(o[t + 1], a, r[2], r[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  __nv_bfloat16* ob = p.o + (long long)b * p.Lq * row_stride + (long long)h * D;
-#pragma unroll
-  for (int t = 0; t < NO; ++t) {
-    const int d = wd * DS + t * 8 + 2 * t4;
-    if (ok0)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r0 * row_stride + d) =
-          pack_bf16(o[t][0] / l0, o[t][1] / l0);
-    if (ok1)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r1 * row_stride + d) =
-          pack_bf16(o[t][2] / l1, o[t][3] / l1);
-  }
-}
-
-template <int D, bool kPv8> int launch_mma(const Args& a, cudaStream_t stream) {
-  using C = Cfg<D, kPv8>;
-  if (kPv8 && (a.lk_pad < a.Lk || a.lk_pad % C::BK)) return kUnsupported;
-  cudaError_t e = cudaFuncSetAttribute(flash_int8_mma_kernel<D, kPv8>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(C::smem_bytes));
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.Lq + C::BQ - 1) / C::BQ, a.H, a.B);
-  flash_int8_mma_kernel<D, kPv8><<<grid, kThreads, C::smem_bytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The wgmma body, D = 64, 128, 256.
-// ---------------------------------------------------------------------------
 template <int D, bool kPv8> struct Wg {
+  static constexpr int WGS = D == 512 ? 2 : 1;   // warpgroups, each owning DS output columns
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int DS = D / WGS;
   static constexpr int BQ = 64, BK = 64;         // query rows, keys per tile
   static constexpr int S = kPv8 && D <= 128 ? 3 : 2;  // K and V tiles in flight
   static constexpr int W = D < 128 ? D : 128;    // swizzle span = box row of int8 q and k
+  static constexpr int VR = D < 256 ? D : 256;   // channel rows per TMA box of int8 V
   static constexpr int Q_BYTES = BQ * D;
   static constexpr int K_BYTES = BK * D;
   static constexpr int V_BYTES = kPv8 ? D * BK : BK * D * 2;
-  static constexpr int NP = kPv8 && D == 256 ? 32 : D;  // output columns per PV wgmma
+  static constexpr int NP = kPv8 && DS == 256 ? 32 : DS;  // output columns per PV wgmma
   // No slack: the dynamic shared memory starts 1024-aligned (checked in the
-  // kernel), and D = 256 qk8 needs all but a few bytes of half an SM.
+  // kernel); D = 256 qk8 needs all but a few bytes of half an SM, D = 512
+  // qk8 all but 3 KB of a whole one.
   static constexpr size_t smem_bytes =
       Q_BYTES + S * (K_BYTES + V_BYTES) + (kPv8 ? D * 4 : 0) + 8 * (1 + 2 * S);
+  static_assert(smem_bytes <= 232448, "more than the 227 KB of shared memory a block may have");
 };
 
 // K-major int8 tile of `rows` rows in W-byte boxes: the k32 step ks.
@@ -492,26 +141,31 @@ __device__ __forceinline__ void mma_pv_s8(int (&d)[N / 2], const uint32_t (&a)[4
 }
 
 // Four p in [0, 127] -> four int8 codes (round half to even), lowest key
-// first: pack_s8 without the conversion unit (exact there, as |int32 sums|
-// < 2^22 are for small_i2f: at most 256 * 127 * 127 in QK^T, 64 * 127 * 127
-// in PV).
+// first, without the conversion unit (exact there, as |int32 sums| < 2^22
+// are for small_i2f: at most 256 * 127 * 127 in QK^T at D <= 256, 64 * 127 *
+// 127 in PV).
 __device__ __forceinline__ uint32_t pack_codes(float a, float b, float c, float d) {
   using hopper::round_byte;
   return __byte_perm(__byte_perm(round_byte(a), round_byte(b), 0x0040),
                      __byte_perm(round_byte(c), round_byte(d), 0x0040), 0x5410);
 }
 
+// A score's int32 sum as fp32: small_i2f where it is exact (D <= 256).
+template <int D> __device__ __forceinline__ float score_i2f(int x) {
+  if constexpr (D <= 256) return hopper::small_i2f(x);
+  else return __int2float_rn(x);
+}
+
 template <int D, bool kPv8>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Wg<D, kPv8>::THREADS)
     flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv, const Args p) {
   using namespace hopper;
   using C = Wg<D, kPv8>;
-  static_assert(D <= 256, "small_i2f is exact for QK^T sums of at most 256 int8 products");
-  constexpr int BK = C::BK, S = C::S, W = C::W, NP = C::NP;
+  constexpr int BK = C::BK, S = C::S, W = C::W, NP = C::NP, DS = C::DS;
   constexpr int NS = BK / 2;             // S accumulator registers (s32, then fp32 bits)
-  constexpr int NO = D / 2;              // output accumulator registers
+  constexpr int NO = DS / 2;             // output accumulator registers
   constexpr int KP = kPv8 ? BK / 32 : BK / 16;  // k-steps of PV
   // int8 PV at D <= 128: one tile at a time (see the file's head).
   constexpr bool kSerial = kPv8 && D <= 128;
@@ -525,7 +179,8 @@ __global__ void __launch_bounds__(kThreads)
   uint64_t* kbar = qbar + 1;
   uint64_t* vbar = kbar + S;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // Warpgroup wg owns output columns wg * DS..+DS; both hold the same S.
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * C::BQ;
   const long long bh = (long long)b * p.H + h;
@@ -540,7 +195,7 @@ __global__ void __launch_bounds__(kThreads)
     fence_barrier_init();
   }
   if constexpr (kPv8) {
-    for (int c = tid; c < D; c += kThreads) sv_s[c] = p.sv[bh * D + c];
+    for (int c = tid; c < D; c += C::THREADS) sv_s[c] = p.sv[bh * D + c];
   }
   __syncthreads();
 
@@ -554,8 +209,11 @@ __global__ void __launch_bounds__(kThreads)
   auto load_v = [&](int t) {
     const int s = t % S;
     mbar_expect_tx(vbar + s, C::V_BYTES);
-    if constexpr (kPv8) {  // D channel rows of BK (permuted) keys
-      tma_load_2d(Vs + s * C::V_BYTES, &tv, vbar + s, t * BK, (int)(bh * D));
+    if constexpr (kPv8) {  // D channel rows of BK (permuted) keys, in boxes of VR rows
+#pragma unroll
+      for (int r = 0; r < D / C::VR; ++r)
+        tma_load_2d(Vs + s * C::V_BYTES + r * C::VR * BK, &tv, vbar + s, t * BK,
+                    (int)(bh * D) + r * C::VR);
     } else {
 #pragma unroll
       for (int nb = 0; nb < D / 64; ++nb)
@@ -575,7 +233,9 @@ __global__ void __launch_bounds__(kThreads)
   const float sq0 = r0 < p.Lq ? p.sq[bh * p.Lq + r0] : 0.f;
   const float sq1 = r1 < p.Lq ? p.sq[bh * p.Lq + r1] : 0.f;
   const float* skb = p.sk + bh * p.Lk;
-  const uint32_t q_addr = smem_u32(Qs), k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
+  // V of this warpgroup's columns: its bf16 boxes of 64 columns, or its int8 channel rows.
+  const uint32_t q_addr = smem_u32(Qs), k_addr = smem_u32(Ks),
+                 v_addr = smem_u32(Vs) + wg * (kPv8 ? DS * BK : DS / 64 * BK * 128);
 
   int si[NS];
   float o[NO];
@@ -585,11 +245,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
+  // si = q k_t^T over all of D, one commit group.  At D = 512 the q address
+  // is made opaque here, so the compiler rebuilds its 16 descriptors at each
+  // call rather than holding them in 32 registers across the loop.
   auto issue_qk = [&](int t) {
     const uint32_t kb = k_addr + (t % S) * C::K_BYTES;
+    uint32_t qa = q_addr;
+    if constexpr (D == 512) asm volatile("" : "+r"(qa));
 #pragma unroll
     for (int ks = 0; ks < D / 32; ++ks)
-      wgmma_ss_s8_n64(si, kmajor8<W>(q_addr, C::BQ, ks), kmajor8<W>(kb, BK, ks), ks);
+      wgmma_ss_s8_n64(si, kmajor8<W>(qa, C::BQ, ks), kmajor8<W>(kb, BK, ks), ks);
     wg_commit();
   };
   // The sk of this thread's keys 8n + 2 t4 (+1) of tile t (0 past Lk).
@@ -611,7 +276,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = __fmul_rn(__fmul_rn(small_i2f(si[4 * n + e]), e < 2 ? sq0 : sq1),
+        float x = __fmul_rn(__fmul_rn(score_i2f<D>(si[4 * n + e]), e < 2 ? sq0 : sq1),
                             skr[2 * n + (e & 1)]);
         if (t * BK + n * 8 + 2 * t4 + (e & 1) >= p.Lk) x = kNegInf;  // ragged last tile
         si[4 * n + e] = __float_as_int(x);
@@ -667,7 +332,7 @@ __global__ void __launch_bounds__(kThreads)
     const uint32_t vb = v_addr + (t % S) * C::V_BYTES;
 #pragma unroll
     for (int kp = 0; kp < KP; ++kp)
-      mma_pv_bf16<D>(o, pa[kp], make_desc(vb + kp * 16 * 128, BK * 128, 1024, 128));
+      mma_pv_bf16<DS>(o, pa[kp], make_desc(vb + kp * 16 * 128, BK * 128, 1024, 128));
     wg_commit();
   };
   // int8 PV of tile t for output columns part*NP..+NP into pv, one commit group.
@@ -688,7 +353,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = part * (NP / 2) + 4 * n + e;
-          const float sv = sv_s[part * NP + n * 8 + 2 * t4 + (e & 1)];
+          const float sv = sv_s[wg * DS + part * NP + n * 8 + 2 * t4 + (e & 1)];
           o[i] = __fadd_rn(__fmul_rn(o[i], e < 2 ? a0 : a1), __fmul_rn(small_i2f(pv[4 * n + e]), sv));
         }
     }
@@ -697,7 +362,7 @@ __global__ void __launch_bounds__(kThreads)
   auto pv_rest = [&](const uint32_t (&pa)[KP][4], int t, float a0, float a1) {
     if constexpr (kPv8) {
 #pragma unroll
-      for (int part = 1; part < D / NP; ++part) {
+      for (int part = 1; part < DS / NP; ++part) {
         wg_fence();
         fence_regs(pv);
         issue_pv_s8(pa, t, part);
@@ -725,7 +390,7 @@ __global__ void __launch_bounds__(kThreads)
       pack_p(pa);
       mbar_wait(vbar + j % S, (j / S) & 1);
 #pragma unroll
-      for (int part = 0; part < D / NP; ++part) {
+      for (int part = 0; part < DS / NP; ++part) {
         wg_fence();
         fence_regs(pv);
         fence_regs(pa);
@@ -780,7 +445,7 @@ __global__ void __launch_bounds__(kThreads)
         ap1 = a1;
       } else {
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < DS / 8; ++n) {
           o[4 * n] = __fmul_rn(o[4 * n], a0);
           o[4 * n + 1] = __fmul_rn(o[4 * n + 1], a0);
           o[4 * n + 2] = __fmul_rn(o[4 * n + 2], a1);
@@ -817,9 +482,9 @@ __global__ void __launch_bounds__(kThreads)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const long long row_stride = (long long)p.H * D;
-  __nv_bfloat16* ob = p.o + (long long)b * p.Lq * row_stride + (long long)h * D;
+  __nv_bfloat16* ob = p.o + (long long)b * p.Lq * row_stride + (long long)h * D + wg * DS;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DS / 8; ++n) {
     const int col = n * 8 + 2 * t4;
     if (r0 < p.Lq)
       *reinterpret_cast<uint32_t*>(ob + (long long)r0 * row_stride + col) =
@@ -840,7 +505,7 @@ template <int D, bool kPv8> int launch_wgmma(const Args& a, cudaStream_t stream)
     e = hopper::encode_bshd(&mk, a.k, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.B, a.Lk, a.H, D, C::W,
                             C::BK);
   if (e == 0)
-    e = kPv8 ? hopper::encode_rows_u8(&mv, a.v, (long long)a.B * a.H * D, a.lk_pad, C::BK, D)
+    e = kPv8 ? hopper::encode_rows_u8(&mv, a.v, (long long)a.B * a.H * D, a.lk_pad, C::BK, C::VR)
              : hopper::encode_bshd(&mv, a.v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.B, a.Lk, a.H,
                                    D, 128, C::BK);
   if (e != 0) return e;
@@ -849,23 +514,25 @@ template <int D, bool kPv8> int launch_wgmma(const Args& a, cudaStream_t stream)
                                         static_cast<int>(C::smem_bytes));
   if (ce != cudaSuccess) return ce;
   const dim3 grid((a.Lq + C::BQ - 1) / C::BQ, a.H, a.B);
-  flash_int8_wgmma_kernel<D, kPv8><<<grid, kThreads, C::smem_bytes, stream>>>(mq, mk, mv, a);
+  flash_int8_wgmma_kernel<D, kPv8><<<grid, C::THREADS, C::smem_bytes, stream>>>(mq, mk, mv, a);
   return cudaGetLastError();
 }
 
-template <typename Kernel>
-int occupancy(Kernel fn, size_t smem, int* out) {
+template <int D, bool kPv8> int occupancy(int* out) {
+  const auto fn = flash_int8_wgmma_kernel<D, kPv8>;
+  const size_t smem = Wg<D, kPv8>::smem_bytes;
+  constexpr int threads = Wg<D, kPv8>::THREADS;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
   int blocks = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
   if (e != cudaSuccess) return e;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
   out[2] = (int)smem;
   out[3] = blocks;
-  out[4] = kThreads;
+  out[4] = threads;
   return 0;
 }
 
@@ -886,7 +553,7 @@ int drt_flash_int8_block_k(int D) {
     case 64: return Wg<64, false>::BK;
     case 128: return Wg<128, false>::BK;
     case 256: return Wg<256, false>::BK;
-    case 512: return Tile<512>::BK;
+    case 512: return Wg<512, false>::BK;
     default: return -1;
   }
 }
@@ -907,8 +574,8 @@ int drt_flash_attention_int8(const void* q, const void* k, const void* v, const 
     case 257: return launch_wgmma<128, true>(a, st);
     case 512: return launch_wgmma<256, false>(a, st);
     case 513: return launch_wgmma<256, true>(a, st);
-    case 1024: return launch_mma<512, false>(a, st);
-    case 1025: return launch_mma<512, true>(a, st);
+    case 1024: return launch_wgmma<512, false>(a, st);
+    case 1025: return launch_wgmma<512, true>(a, st);
     default: return kUnsupported;
   }
 }
@@ -917,14 +584,14 @@ int drt_flash_attention_int8(const void* q, const void* k, const void* v, const 
 // threads per block}.
 int drt_flash_int8_occupancy(int D, int pv8, int* out) {
   switch (D * 2 + (pv8 ? 1 : 0)) {
-    case 128: return occupancy(flash_int8_wgmma_kernel<64, false>, Wg<64, false>::smem_bytes, out);
-    case 129: return occupancy(flash_int8_wgmma_kernel<64, true>, Wg<64, true>::smem_bytes, out);
-    case 256: return occupancy(flash_int8_wgmma_kernel<128, false>, Wg<128, false>::smem_bytes, out);
-    case 257: return occupancy(flash_int8_wgmma_kernel<128, true>, Wg<128, true>::smem_bytes, out);
-    case 512: return occupancy(flash_int8_wgmma_kernel<256, false>, Wg<256, false>::smem_bytes, out);
-    case 513: return occupancy(flash_int8_wgmma_kernel<256, true>, Wg<256, true>::smem_bytes, out);
-    case 1024: return occupancy(flash_int8_mma_kernel<512, false>, Cfg<512, false>::smem_bytes, out);
-    case 1025: return occupancy(flash_int8_mma_kernel<512, true>, Cfg<512, true>::smem_bytes, out);
+    case 128: return occupancy<64, false>(out);
+    case 129: return occupancy<64, true>(out);
+    case 256: return occupancy<128, false>(out);
+    case 257: return occupancy<128, true>(out);
+    case 512: return occupancy<256, false>(out);
+    case 513: return occupancy<256, true>(out);
+    case 1024: return occupancy<512, false>(out);
+    case 1025: return occupancy<512, true>(out);
     default: return kUnsupported;
   }
 }

@@ -1,7 +1,6 @@
 // Kernels 1, 2, 3, 6 and 7 for Hopper (sm_90a): flash attention on wgmma,
-// TMA and mbarriers.  Kernels 1, 2, 6 and 7 at every head dim (64, 128, and
-// the wide heads 256 and 512, the VAE's mid-block attention, on attend_wide),
-// kernel 3 at 64 and 128 (csrc/flash_attention.cu holds it at 256 and 512).
+// TMA and mbarriers, at every head dim: 64, 128, and the wide heads 256 and
+// 512 (the VAE's mid-block attention) on attend_wide.
 //
 // Replaces, of diffusionrenderer_tpu/ops/flash_attention.py:
 //   * _flash_kernel_noshift (:185-259) - p = exp2(s) with no max shift, taken
@@ -13,7 +12,8 @@
 //   * _flash_kernel_partial / _flash_kernel_partial_bias (:121, :384, through
 //     flash_attention_partial :766) - kernel 2 plus the per-row running max m
 //     (log2 domain) and the unclamped normalizer l, the inner block of ring
-//     attention (kernel 3, partial_kernel);
+//     attention (kernel 3, partial_kernel, at the wide heads
+//     partial_kernel_wide);
 //   * _flash_kernel_bounded_pipe (:262-314) - p = exp2(s - mb_i) with the
 //     caller's row bound mb_i = ||q'_i|| * max_j ||k_j|| and the score tile
 //     carried one key tile ahead (kernel 6, flash_attention(bounded=True,
@@ -27,9 +27,10 @@
 // no-shift or the online body; block (0, 0, 0) tallies the branch.  An
 // unbounded call runs the online body and tallies it.  Kernels 3, 6 and 7
 // are launches of their own (partial_kernel<D>, bounded_kernel<D, kBoundedPipe
-// | kBounded>, at the wide heads bounded_kernel_wide<D, ...>), with no rule
-// and no tally; kernel 3 is the online body, so its output equals the
-// unbounded call's bit for bit.  With
+// | kBounded>, at the wide heads partial_kernel_wide<D> and
+// bounded_kernel_wide<D, ...>), with no rule and no tally; kernel 3 is the
+// online body, so unsplit its output equals the unbounded call's bit for
+// bit.  With
 // q' = bf16(q * bf16(scale * log2 e)), per key tile of BK keys and row i:
 //   no-shift  p = exp2(s),                  l += sum_j p,  acc += bf16(p) v
 //   online    m_new = max(m, max_j s_ij),   alpha = exp2(m - m_new),
@@ -42,8 +43,8 @@
 // (keys past Lk: s = -1e30): the rounding points of the JAX kernels.  exp2
 // is one SFU instruction (ex2.approx.ftz): weights below 2^-126 flush to
 // zero, as on XLA's CPU backend; the plain versions flush them too.  The
-// wide heads' online branch keeps exp2f, as the mma.sync body it replaces
-// did: in the online softmax a flushed weight could not show.
+// wide heads' online branch keeps exp2f: in the online softmax a flushed
+// weight could not show.
 //
 // What bounds them on an H100: 4*Lq*Lk*H*D bf16 tensor-core operations (0.087
 // ms at the DiT's (5, 1024, 32, 128)), then Lq*Lk*H exp2 on the SFUs, and
@@ -137,7 +138,7 @@ struct Args {
   int bounded;
   float* m_out;        // (B, H, Lq) running max and normalizer (kernel 3)
   float* l_out;
-  int split;           // kernels 6 and 7 at the wide heads: keys split over 2-block clusters
+  int split;           // kernels 3, 6 and 7 at the wide heads: keys split over 2-block clusters
 };
 
 template <int N> struct Buf { static constexpr int value = N; };
@@ -577,11 +578,12 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
 }
 
 // ---------------------------------------------------------------------------
-// Kernels 1, 2, 6 and 7 at the wide heads, D = 256 and 512 (the VAE's
+// Kernels 1, 2, 3, 6 and 7 at the wide heads, D = 256 and 512 (the VAE's
 // mid-block attention, one head at D = 512; JAX's kernels take it at
 // block_k <= 512).  Kernels 6 and 7 are the no-shift body shifted by the
 // row bound; both run the one schedule below (it already carries the score
 // tile, as kernel 6 must), under two launch names, so they agree bit for bit.
+// Kernel 3 is the online body (kernel 2's) plus the stores of m and l.
 //
 // A 64-row fp32 accumulator over all of D = 512 is 256 registers a thread,
 // more than a thread has, and rows per block set the L2 traffic (every block
@@ -615,20 +617,23 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
 //     reads) measured slower at every shape: the L2 stream does not bound
 //     this body; shared-memory traffic per key (Q re-read by every QK^T
 //     wgmma, the tiles' TMA writes, the exchange) is the likelier limit;
-//   * the key split (kernels 6 and 7): one block per SM and 64 query rows a
-//     block leave most SMs idle where B * H * ceil(Lq / 64) is small (64
-//     blocks on 132 SMs at the VAE's encode shape).  The bounded softmax's
-//     shift is fixed per row, so the l and acc of disjoint key ranges add
-//     with no rescale: out = (acc_0 + acc_1) / (l_0 + l_1).  Where half-
-//     length blocks in pairs take fewer waves (key_split_rule: where the
-//     grid fits the card's resident clusters, or its last wave of whole
-//     blocks is less than half full), the launch pairs each query tile's
-//     block with a second one in a cluster, rank r taking the r-th half of
-//     the key tiles; after both last PVs, rank 1
-//     stores its acc and l into rank 0's K / V rings and score buffers
-//     (distributed shared memory: 64 x 512 fp32 is exactly the rings' 128
-//     KB), and after a cluster barrier rank 0 adds them in that one order and
-//     writes the output.  No atomics: the same bits every run.
+//   * the key split (kernels 3, 6 and 7): one block per SM and 64 query rows
+//     a block leave most SMs idle where B * H * ceil(Lq / 64) is small (64
+//     blocks on 132 SMs at the VAE's encode shape).  Where half-length
+//     blocks in pairs take fewer waves (key_split_rule: where the grid fits
+//     the card's resident clusters, or its last wave of whole blocks is less
+//     than half full), the launch pairs each query tile's block with a
+//     second one in a cluster, rank r taking the r-th half of the key tiles;
+//     after both last PVs, rank 1 stores its acc, l (and m) into rank 0's
+//     K / V rings and score buffers (distributed shared memory: 64 x 512
+//     fp32 is exactly the rings' 128 KB), and after a cluster barrier rank
+//     0 merges them in one fixed order and writes the output.  The bounded
+//     softmax's shift is fixed per row, so the l and acc of disjoint key
+//     ranges add with no rescale: out = (acc_0 + acc_1) / (l_0 + l_1).
+//     Kernel 3's running maxima differ between the halves, so its merge
+//     rescales, as ring attention's _merge does: m = max(m_0, m_1), a_r =
+//     exp2(m_r - m), acc = acc_0 a_0 + acc_1 a_1, l = l_0 a_0 + l_1 a_1.
+//     No atomics: the same bits every run.
 // ---------------------------------------------------------------------------
 #ifdef DRT_WIDE_BLOCK_K_D256
 template <int D> constexpr int kWideBlockK = D == 256 ? DRT_WIDE_BLOCK_K_D256 : 32;
@@ -651,22 +656,25 @@ template <int D> struct WideCfg {
   static constexpr size_t smem_bytes = SCRATCH_OFFSET + 4 * (kThreads / 32 + 1);
   static_assert(smem_bytes <= 232448, "more than the 227 KB of shared memory a block may have");
   // The key split's merge: rank 1's acc (two warpgroups x 128 threads x
-  // DS / 2 fp32) into rank 0's K and V rings, its l (two fp32 a thread) into
-  // the score buffers.
+  // DS / 2 fp32) into rank 0's K and V rings, its l and m (four fp32 a
+  // thread) into the score buffers.
   static_assert(kThreads * (DS / 2) * 4 <= 2 * STAGES * T_BYTES, "acc does not fit the rings");
-  static_assert(kThreads * 8 <= 2 * kWGS * X_BYTES, "l does not fit the score buffers");
+  static_assert(kThreads * 16 <= 2 * kWGS * X_BYTES, "l and m do not fit the score buffers");
 };
 
 // The key split's merge, by every thread of both blocks of the cluster once
-// each block's last PV has landed: rank 0's o and l (row sums, quad-summed)
-// become acc_0 + acc_1 and l_0 + l_1.  Thread tid of either block holds the
-// same rows and columns, so rank 1's thread tid stores to the slots rank 0's
-// thread tid reads.
-template <typename C, int NO>
+// each block's last PV has landed.  Fixed shift (kRescale false): rank 0's
+// o and l (row sums, quad-summed) become acc_0 + acc_1 and l_0 + l_1.
+// Running max (kRescale, kernel 3): with m = max(m_0, m_1) and a_r =
+// exp2(m_r - m), they become acc_0 a_0 + acc_1 a_1 and l_0 a_0 + l_1 a_1,
+// and m0 / m1 become m.  Thread tid of either block holds the same rows and
+// columns, so rank 1's thread tid stores to the slots rank 0's thread tid
+// reads.
+template <typename C, bool kRescale, int NO>
 __device__ __forceinline__ void merge_key_split(unsigned char* smem, float (&o)[NO], float& l0,
-                                                float& l1, int rank) {
+                                                float& l1, float& m0, float& m1, int rank) {
   float4* acc = reinterpret_cast<float4*>(smem + C::Q_BYTES);  // the K and V rings
-  float2* ls = reinterpret_cast<float2*>(smem + C::X_OFFSET);  // the score buffers
+  float4* ls = reinterpret_cast<float4*>(smem + C::X_OFFSET);  // the score buffers
   const int tid = threadIdx.x;
   cluster_sync();  // both blocks are done with their rings and score buffers
   if (rank == 1) {
@@ -675,21 +683,43 @@ __device__ __forceinline__ void merge_key_split(unsigned char* smem, float (&o)[
     for (int i = 0; i < NO / 4; ++i)
       st_cluster_v4(racc + (i * kThreads + tid) * 16, o[4 * i], o[4 * i + 1], o[4 * i + 2],
                     o[4 * i + 3]);
-    st_cluster_v2(map_shared_rank(smem_u32(ls), 0) + tid * 8, l0, l1);
+    st_cluster_v4(map_shared_rank(smem_u32(ls), 0) + tid * 16, l0, l1, m0, m1);
   }
   cluster_sync();  // rank 1's stores are visible in rank 0
   if (rank == 0) {
+    const float4 y = ls[tid];  // rank 1's l0, l1, m0, m1
+    float a0 = 1.f, a1 = 1.f, b0 = 1.f, b1 = 1.f;
+    if constexpr (kRescale) {
+      const float mx0 = fmaxf(m0, y.z), mx1 = fmaxf(m1, y.w);
+      a0 = exp2f(m0 - mx0);
+      b0 = exp2f(y.z - mx0);
+      a1 = exp2f(m1 - mx1);
+      b1 = exp2f(y.w - mx1);
+      m0 = mx0;
+      m1 = mx1;
+    }
 #pragma unroll
     for (int i = 0; i < NO / 4; ++i) {
-      const float4 y = acc[i * kThreads + tid];
-      o[4 * i] += y.x;
-      o[4 * i + 1] += y.y;
-      o[4 * i + 2] += y.z;
-      o[4 * i + 3] += y.w;
+      const float4 x = acc[i * kThreads + tid];
+      if constexpr (kRescale) {
+        o[4 * i] = o[4 * i] * a0 + x.x * b0;
+        o[4 * i + 1] = o[4 * i + 1] * a0 + x.y * b0;
+        o[4 * i + 2] = o[4 * i + 2] * a1 + x.z * b1;
+        o[4 * i + 3] = o[4 * i + 3] * a1 + x.w * b1;
+      } else {
+        o[4 * i] += x.x;
+        o[4 * i + 1] += x.y;
+        o[4 * i + 2] += x.z;
+        o[4 * i + 3] += x.w;
+      }
     }
-    const float2 y = ls[tid];
-    l0 += y.x;
-    l1 += y.y;
+    if constexpr (kRescale) {
+      l0 = l0 * a0 + y.x * b0;
+      l1 = l1 * a1 + y.y * b1;
+    } else {
+      l0 += y.x;
+      l1 += y.y;
+    }
   }
 }
 
@@ -698,8 +728,8 @@ __device__ __forceinline__ void attend_wide(const CUtensorMap* tq, const CUtenso
                                             const CUtensorMap* tv, const Args& p,
                                             unsigned char* smem) {
   using C = WideCfg<D>;
-  static_assert(kMode != kPartial, "kernel 3 at the wide heads is csrc/flash_attention.cu's");
   constexpr bool kRowBound = kMode == kBoundedPipe || kMode == kBounded;
+  constexpr bool kRunningMax = kMode == kOnline || kMode == kPartial;
   constexpr int BK = C::BK, S = C::STAGES;
   constexpr int NS = BK / 2;       // S accumulator registers
   constexpr int NO = C::DS / 2;    // output accumulator registers
@@ -720,7 +750,7 @@ __device__ __forceinline__ void attend_wide(const CUtensorMap* tq, const CUtenso
   // + nk) of the nk_all; blocks 2i and 2i+1 share query tile i.  Unsplit,
   // every block takes them all.  The loop numbers this block's tiles from 0
   // (stages, barrier parities); its tile t holds keys from (t0 + t) * BK.
-  const bool split = kRowBound && p.split;
+  const bool split = (kRowBound || kMode == kPartial) && p.split;
   const int nk_all = (p.Lk + BK - 1) / BK;
   int rank = 0, t0 = 0, nk = nk_all;
   if (split) {
@@ -858,7 +888,7 @@ __device__ __forceinline__ void attend_wide(const CUtensorMap* tq, const CUtenso
     fence_regs(pa);
     exchange(cur, j);
     const int key0 = (t0 + j) * BK;
-    if constexpr (kMode == kOnline) {
+    if constexpr (kRunningMax) {
       float a0, a1;
       online_softmax<BK, true>(cur, key0, p.Lk, t4, m0, m1, l0, l1, a0, a1);
       rescale(o, a0, a1);  // no PV is in flight
@@ -899,10 +929,17 @@ __device__ __forceinline__ void attend_wide(const CUtensorMap* tq, const CUtenso
 
   quad_sum(l0, l1);
   if (split) {
-    merge_key_split<C>(smem, o, l0, l1, rank);
+    merge_key_split<C, kRunningMax>(smem, o, l0, l1, m0, m1, rank);
     if (rank == 1) return;
   }
-  if constexpr (kMode != kOnline) {
+  if constexpr (kMode == kPartial) {
+    // JAX's partial stats, as attend's: both warpgroups hold the same m and
+    // l bit for bit (the score exchange), so warpgroup 0 stores them.
+    const long long rows = ((long long)b * p.H + h) * p.Lq;
+    if (wg == 0 && t4 == 0 && r0 < p.Lq) p.m_out[rows + r0] = m0, p.l_out[rows + r0] = l0;
+    if (wg == 0 && t4 == 0 && r1 < p.Lq) p.m_out[rows + r1] = m1, p.l_out[rows + r1] = l1;
+  }
+  if constexpr (!kRunningMax) {
     l0 = fmaxf(l0, 1e-37f);
     l1 = fmaxf(l1, 1e-37f);
   }
@@ -985,6 +1022,18 @@ __global__ void __launch_bounds__(kThreads)
   attend<D, kMode>(&tq, &tk, &tv, p, smem);
 }
 
+// Kernel 3 at the wide heads, on attend_wide; with p.split, launched in
+// 2-block clusters that split the keys and merge with a rescale.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    partial_kernel_wide(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const Args p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (smem_u32(smem) & 1023) __trap();
+  attend_wide<D, kPartial>(&tq, &tk, &tv, p, smem);
+}
+
 // Kernels 6 and 7 at the wide heads, on attend_wide; with p.split, launched
 // in 2-block clusters that split the keys.
 template <int D, Mode kMode>
@@ -1049,6 +1098,8 @@ int kernel_of(int which, int D, KernelFn* fn, size_t* smem) {
   else if (which == 0 && D == 512) *fn = attention_kernel_wide<512>, *smem = WideCfg<512>::smem_bytes;
   else if (which == 3 && D == 64) *fn = partial_kernel<64>, *smem = Cfg<64, kBlockK<kPartial, 64>>::smem_bytes;
   else if (which == 3 && D == 128) *fn = partial_kernel<128>, *smem = Cfg<128, kBlockK<kPartial, 128>>::smem_bytes;
+  else if (which == 3 && D == 256) *fn = partial_kernel_wide<256>, *smem = WideCfg<256>::smem_bytes;
+  else if (which == 3 && D == 512) *fn = partial_kernel_wide<512>, *smem = WideCfg<512>::smem_bytes;
   else if (which == 1 && D == 64) *fn = bounded_kernel<64, kBoundedPipe>, *smem = Cfg<64, kBlockK<kBoundedPipe, 64>>::smem_bytes;
   else if (which == 1 && D == 128) *fn = bounded_kernel<128, kBoundedPipe>, *smem = Cfg<128, kBlockK<kBoundedPipe, 128>>::smem_bytes;
   else if (which == 2 && D == 64) *fn = bounded_kernel<64, kBounded>, *smem = Cfg<64, kBlockK<kBounded, 64>>::smem_bytes;
@@ -1065,7 +1116,7 @@ bool bad_sizes(int B, int Lq, int Lk, int H) {
   return B < 1 || Lq < 1 || Lk < 1 || H < 1 || B > 65535 || H > 65535;
 }
 
-// How many blocks of kernel 6 or 7 (`which` 1, 2) at D = 256 or 512 the
+// How many blocks of kernel 6, 7 or 3 (`which` 1, 2, 3) at D = 256 or 512 the
 // current card holds at once, whole and as 2-block clusters; asked of the
 // runtime once per kernel (a process drives one kind of card).
 struct Residency {
@@ -1073,7 +1124,7 @@ struct Residency {
 };
 
 int wide_residency(int which, int D, Residency* r) {
-  static Residency cached[2][2] = {};
+  static Residency cached[3][2] = {};
   Residency& c = cached[which - 1][D == 512];
   if (c.blocks == 0) {
     KernelFn fn;
@@ -1096,15 +1147,16 @@ int wide_residency(int which, int D, Residency* r) {
   return 0;
 }
 
-// Whether kernels 6 and 7 can split these keys: at the wide heads, with two
-// key tiles or more (one for each block of a cluster).
+// Whether kernels 3, 6 and 7 can split these keys: at the wide heads, with
+// two key tiles or more (one for each block of a cluster).
 bool key_split_fits(int Lk, int D) {
   if (D != 256 && D != 512) return false;
   const int bk = D == 256 ? WideCfg<256>::BK : WideCfg<512>::BK;
   return (Lk + bk - 1) / bk >= 2;
 }
 
-// Kernels 6 and 7's key split rule, where key_split_fits: split where the
+// The key split rule of kernels 6, 7 and 3 (`which` 1, 2, 3), where
+// key_split_fits: split where the
 // n = B * H * ceil(Lq / 64) query tiles, as 2-block clusters of half-length
 // blocks, take fewer waves than twice the waves of whole blocks,
 // ceil(n / pairs) < 2 ceil(n / blocks).  That holds where n
@@ -1123,14 +1175,27 @@ int key_split_rule(int which, int B, int Lq, int Lk, int H, int D, int* split) {
   return 0;
 }
 
+// Whether the launch of `which` splits these keys: key_split -1 the rule of
+// drt_flash_wgmma_key_split, 0 never, 1 always (D = 256, 512, two key tiles
+// or more).
+int split_of(int which, int key_split, int B, int Lq, int Lk, int H, int D, int* split) {
+  *split = 0;
+  if (key_split < 0) return key_split_rule(which, B, Lq, Lk, H, D, split);
+  if (key_split > 0) {
+    if (!key_split_fits(Lk, D)) return kUnsupported;
+    *split = 1;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* drt_flash_wgmma_error_string(int code) {
   if (code == kUnsupported)
-    return "unsupported head dim or sizes (kernels 1, 2, 6 and 7 take D = 64, 128, 256, 512, "
-           "kernel 3 D = 64, 128; a key split D = 256, 512 and two key tiles or more)";
+    return "unsupported head dim or sizes (kernels 1, 2, 3, 6 and 7 take D = 64, 128, 256, 512; "
+           "a key split D = 256, 512 and two key tiles or more)";
   if (code == kEncodeFailed) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -1155,26 +1220,43 @@ int drt_flash_wgmma_attention(const void* q, const void* k, const void* v, void*
   }
 }
 
-// Kernel 3 on (B, L, H, D) bf16 q, k, v at D = 64, 128: out, and fp32
-// (B, H, Lq) m and l written for every query row.
+// Kernel 3 on (B, L, H, D) bf16 q, k, v: out, and fp32 (B, H, Lq) m and l
+// written for every query row.  key_split as drt_flash_wgmma_bounded's.
 int drt_flash_wgmma_partial(const void* q, const void* k, const void* v, void* o, void* m, void* l,
-                            int B, int Lq, int Lk, int H, int D, float q_scale, void* stream) {
+                            int B, int Lq, int Lk, int H, int D, float q_scale, int key_split,
+                            void* stream) {
   KernelFn fn;
   size_t smem;
   if (bad_sizes(B, Lq, Lk, H) || kernel_of(3, D, &fn, &smem) != 0) return kUnsupported;
   Args a{static_cast<__nv_bfloat16*>(o), nullptr, nullptr, nullptr, B, Lq, Lk, H, q_scale, 0.f, 0,
          static_cast<float*>(m), static_cast<float*>(l)};
+  const int e = split_of(3, key_split, B, Lq, Lk, H, D, &a.split);
+  if (e != 0) return e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch<64, Cfg<64, kBlockK<kPartial, 64>>>(fn, q, k, v, a, st)
-                 : launch<128, Cfg<128, kBlockK<kPartial, 128>>>(fn, q, k, v, a, st);
+  switch (D) {
+    case 64: return launch<64, Cfg<64, kBlockK<kPartial, 64>>>(fn, q, k, v, a, st);
+    case 128: return launch<128, Cfg<128, kBlockK<kPartial, 128>>>(fn, q, k, v, a, st);
+    case 256: return launch<256, WideCfg<256>>(fn, q, k, v, a, st);
+    default: return launch<512, WideCfg<512>>(fn, q, k, v, a, st);
+  }
 }
 
-// Kernels 6 and 7's key split of these sizes (kernel 6 if pipelined, else
-// 7): *split = 1 where drt_flash_wgmma_bounded splits the keys by default
-// (key_split_rule).
-int drt_flash_wgmma_key_split(int B, int Lq, int Lk, int H, int D, int pipelined, int* split) {
-  if (bad_sizes(B, Lq, Lk, H)) return kUnsupported;
-  return key_split_rule(pipelined ? 1 : 2, B, Lq, Lk, H, D, split);
+// Keys per tile of the wide body (attend_wide) at D = 256, 512, where the
+// key split cuts between tiles; -1 at another head dim.
+int drt_flash_wgmma_block_k(int D) {
+  switch (D) {
+    case 256: return WideCfg<256>::BK;
+    case 512: return WideCfg<512>::BK;
+    default: return -1;
+  }
+}
+
+// The key split of these sizes for kernel 6, 7 or 3 (`which` 1, 2, 3):
+// *split = 1 where drt_flash_wgmma_bounded or drt_flash_wgmma_partial splits
+// the keys by default (key_split_rule).
+int drt_flash_wgmma_key_split(int B, int Lq, int Lk, int H, int D, int which, int* split) {
+  if (bad_sizes(B, Lq, Lk, H) || which < 1 || which > 3) return kUnsupported;
+  return key_split_rule(which, B, Lq, Lk, H, D, split);
 }
 
 // Kernel 6 (pipelined) or 7 on (B, L, H, D) bf16 q, k, v and the fp32
@@ -1190,13 +1272,8 @@ int drt_flash_wgmma_bounded(const void* q, const void* k, const void* v, void* o
   if (bad_sizes(B, Lq, Lk, H) || kernel_of(which, D, &fn, &smem) != 0) return kUnsupported;
   Args a{static_cast<__nv_bfloat16*>(o), nullptr, nullptr, static_cast<const float*>(mb),
          B, Lq, Lk, H, q_scale, 0.f, 0};
-  if (key_split < 0) {
-    const int e = key_split_rule(which, B, Lq, Lk, H, D, &a.split);
-    if (e != 0) return e;
-  } else if (key_split > 0) {
-    if (!key_split_fits(Lk, D)) return kUnsupported;
-    a.split = 1;
-  }
+  const int e = split_of(which, key_split, B, Lq, Lk, H, D, &a.split);
+  if (e != 0) return e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return pipelined ? launch<64, Cfg<64, kBlockK<kBoundedPipe, 64>>>(fn, q, k, v, a, st)
@@ -1208,10 +1285,10 @@ int drt_flash_wgmma_bounded(const void* q, const void* k, const void* v, void* o
   }
 }
 
-// which: 0 = kernels 1 and 2's launch, 1 = kernel 6, 2 = kernel 7 (D = 64, 128, 256, 512),
-// 3 = kernel 3 (D = 64, 128).  out = {registers, local (spill) bytes, dynamic shared bytes,
-// resident blocks per SM, threads per block, resident 2-block clusters of the key split
-// (kernels 6 and 7 at D = 256, 512; else 0)}.
+// which: 0 = kernels 1 and 2's launch, 1 = kernel 6, 2 = kernel 7, 3 = kernel 3 (D = 64,
+// 128, 256, 512).  out = {registers, local (spill) bytes, dynamic shared bytes, resident
+// blocks per SM, threads per block, resident 2-block clusters of the key split (kernels 3,
+// 6 and 7 at D = 256, 512; else 0)}.
 int drt_flash_wgmma_occupancy(int which, int D, int* out) {
   KernelFn fn;
   size_t smem;
@@ -1230,7 +1307,7 @@ int drt_flash_wgmma_occupancy(int which, int D, int* out) {
   out[3] = blocks;
   out[4] = kThreads;
   out[5] = 0;
-  if ((which == 1 || which == 2) && (D == 256 || D == 512)) {
+  if (which >= 1 && (D == 256 || D == 512)) {
     Residency r;
     const int err2 = wide_residency(which, D, &r);
     if (err2 != 0) return err2;

@@ -3,10 +3,9 @@
 Counterpart of diffusionrenderer_tpu/ops/flash_attention.py
 (`flash_attention(bounded=..., qk_int8=..., pv_int8=...)`).  The kernels are
 in `csrc/flash_attention_wgmma.cu` (on wgmma and TMA: kernels 1 and 2 in one
-launch, and kernels 6 and 7, at every head dim; kernel 3 at head dims 64 and
-128), `csrc/flash_attention.cu` (bf16 on mma.sync: kernel 3 at head dims 256
-and 512, the headroom kernel) and `csrc/flash_attention_int8.cu`; this
-module holds
+launch, kernel 3, and kernels 6 and 7, at every head dim),
+`csrc/flash_attention.cu` (the headroom kernel) and
+`csrc/flash_attention_int8.cu` (kernel 5, on wgmma); this module holds
 
 * `flash_attention` - the entry point, with the JAX package's signature and
   defaults: the plain versions for CPU tensors, the kernels for CUDA tensors
@@ -22,8 +21,9 @@ module holds
   the same tiles, since P is rounded relative to the running max;
 * `flash_attention_partial` - the online softmax that also returns the
   per-row running max m (log2 domain) and normalizer l, the inner block of
-  ring attention (`flash_attention_partial_kernel`, plain version
-  `flash_attention_partial_plain`);
+  ring attention (`flash_attention_partial_kernel`, whose keys split over
+  2-block clusters at D = 256 and 512 where the grid is small,
+  `partial_key_split`; plain version `flash_attention_partial_plain`);
 * `flash_attention_bounded_shift` and `flash_attention(bounded=True,
   pipelined=True)` - the bounded softmax p = exp2(s - mb_i) with the row
   bound of `row_bound` (`flash_attention_bounded_kernel`, one kernel with
@@ -91,11 +91,11 @@ _FP32_TINY = 2.0 ** -126  # the smallest normal fp32: exp2 below it flushes to z
 HEAD_DIMS = (64, 128, 256, 512)
 # Keys per tile of the int8 kernel at each head dim it takes
 # (csrc/flash_attention_int8.cu, drt_flash_int8_block_k).
-INT8_BLOCK_K = {64: 64, 128: 64, 256: 64, 512: 32}
-# Head dims at which kernel 3 is the wgmma kernel (csrc/flash_attention_wgmma.cu;
-# csrc/flash_attention.cu at 256 and 512).  Kernels 1, 2, 6 and 7 are wgmma
-# kernels at every head dim.
-PARTIAL_WGMMA_HEAD_DIMS = (64, 128)
+INT8_BLOCK_K = {64: 64, 128: 64, 256: 64, 512: 64}
+# Keys per tile of the wide bf16 body at D = 256, 512, where the key split of
+# kernels 3, 6 and 7 cuts between tiles (csrc/flash_attention_wgmma.cu,
+# drt_flash_wgmma_block_k).
+WIDE_BLOCK_K = {256: 64, 512: 32}
 _JAX_DEFAULT_BLOCK_K = 2816  # diffusionrenderer_tpu/ops/flash_attention.py DEFAULT_BLOCK_K
 
 # Launches of each kernel since the last reset_counts(), counted by its wrapper.
@@ -420,8 +420,6 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.drt_flash_headroom.argtypes = [ptr] * 4 + [i32] * 5 + [f32, ptr]
         lib.drt_flash_headroom.restype = i32
-        lib.drt_flash_attention_partial.argtypes = [ptr] * 6 + [i32] * 5 + [f32, ptr]
-        lib.drt_flash_attention_partial.restype = i32
         lib.drt_error_string.argtypes = [i32]
         lib.drt_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -444,12 +442,18 @@ def _lib_wgmma() -> ctypes.CDLL:
         lib.drt_flash_wgmma_bounded.restype = i32
         lib.drt_flash_wgmma_key_split.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
         lib.drt_flash_wgmma_key_split.restype = i32
-        lib.drt_flash_wgmma_partial.argtypes = [ptr] * 6 + [i32] * 5 + [f32, ptr]
+        lib.drt_flash_wgmma_partial.argtypes = [ptr] * 6 + [i32] * 5 + [f32, i32, ptr]
         lib.drt_flash_wgmma_partial.restype = i32
         lib.drt_flash_wgmma_error_string.argtypes = [i32]
         lib.drt_flash_wgmma_error_string.restype = ctypes.c_char_p
         lib.drt_flash_wgmma_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
         lib.drt_flash_wgmma_occupancy.restype = i32
+        lib.drt_flash_wgmma_block_k.argtypes = [i32]
+        lib.drt_flash_wgmma_block_k.restype = i32
+        for d, bk in WIDE_BLOCK_K.items():
+            if lib.drt_flash_wgmma_block_k(d) != bk:
+                raise RuntimeError(f"csrc/flash_attention_wgmma.cu's key tile at D={d} != "
+                                   f"WIDE_BLOCK_K[{d}]")
         _wgmma_handle = lib
     return _wgmma_handle
 
@@ -576,12 +580,11 @@ def flash_attention_kernel(q, k, v, stats: Optional[torch.Tensor]) -> torch.Tens
 def kernel_occupancy(kernel: str, d: int, pv_int8: bool = False) -> Dict[str, int]:
     """What the CUDA runtime reports for one kernel at head dim d: registers
     a thread, local (spill) bytes, dynamic shared bytes, resident blocks
-    per SM and threads per block (and for kernels 6 and 7 at D = 256, 512
-    the 2-block clusters of the key split resident at once).  kernel:
+    per SM and threads per block (and for kernels 3, 6 and 7 at D = 256,
+    512 the 2-block clusters of the key split resident at once).  kernel:
     'attention' (the launch holding kernels 1 and 2), 'bounded_pipe'
-    (kernel 6), 'bounded' (kernel 7), each at any head dim, 'partial'
-    (kernel 3 at D = 64, 128) or 'int8' (kernel 5, pv_int8 selecting its
-    mode)."""
+    (kernel 6), 'bounded' (kernel 7), 'partial' (kernel 3), each at any
+    head dim, or 'int8' (kernel 5, pv_int8 selecting its mode)."""
     out = (ctypes.c_int * 6)()
     wgmma_kernels = ("attention", "bounded_pipe", "bounded", "partial")
     if kernel in wgmma_kernels:
@@ -603,22 +606,24 @@ def kernel_occupancy(kernel: str, d: int, pv_int8: bool = False) -> Dict[str, in
     return occ
 
 
-def flash_attention_partial_kernel(q, k, v):
-    """Launch kernel 3: (out, m, l) as flash_attention_partial_plain.  The
-    wgmma kernel at D = 64, 128 (kernel 2's online body: out is bitwise the
-    unbounded flash_attention's), mma.sync at 256, 512."""
+def flash_attention_partial_kernel(q, k, v, *, key_split: Optional[bool] = None):
+    """Launch kernel 3: (out, m, l) as flash_attention_partial_plain, on the
+    wgmma body of kernel 2's online branch at every head dim, so unsplit its
+    out is bitwise the unbounded flash_attention's.  key_split (D = 256,
+    512): None splits the keys over 2-block clusters where partial_key_split
+    says so, merging the halves with the online rescale; True or False
+    forces it (True needs two key tiles or more)."""
     _check_kernel_inputs(q, k, v)
     b, lq, h, d = q.shape
     out = torch.empty_like(q)
     m = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-            b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype), _stream(q.device))
     with torch.cuda.device(q.device):
-        if d in PARTIAL_WGMMA_HEAD_DIMS:
-            _raise_on_wgmma(_lib_wgmma().drt_flash_wgmma_partial(*args), "flash_attention_partial")
-        else:
-            _raise_on(_lib().drt_flash_attention_partial(*args), "flash_attention_partial")
+        err = _lib_wgmma().drt_flash_wgmma_partial(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+            b, lq, k.shape[1], h, d, _q_scale_value(d, q.dtype),
+            -1 if key_split is None else int(key_split), _stream(q.device))
+    _raise_on_wgmma(err, "flash_attention_partial")
     VARIANT_LAUNCHES["flash_attention_partial"] += 1
     return out, m, l
 
@@ -648,6 +653,16 @@ def flash_attention_bounded_kernel(q, k, v, mb: torch.Tensor, *, pipelined: bool
     return out
 
 
+def _key_split(q, k, which: int) -> bool:
+    b, lq, h, d = q.shape
+    split = ctypes.c_int()
+    with torch.cuda.device(q.device):
+        err = _lib_wgmma().drt_flash_wgmma_key_split(b, lq, k.shape[1], h, d, which,
+                                                     ctypes.byref(split))
+    _raise_on_wgmma(err, "key_split")
+    return bool(split.value)
+
+
 def bounded_key_split(q, k, *, pipelined: bool = True) -> bool:
     """Whether kernel 6 (pipelined) or 7 splits the keys of these CUDA
     inputs over 2-block clusters by default: at D = 256 and 512, with two
@@ -655,13 +670,13 @@ def bounded_key_split(q, k, *, pipelined: bool = True) -> bool:
     of half-length blocks take fewer waves on the card than whole blocks
     (the grid fits the card's resident pairs, or its last wave of whole
     blocks is less than half full)."""
-    b, lq, h, d = q.shape
-    split = ctypes.c_int()
-    with torch.cuda.device(q.device):
-        err = _lib_wgmma().drt_flash_wgmma_key_split(b, lq, k.shape[1], h, d, int(pipelined),
-                                                     ctypes.byref(split))
-    _raise_on_wgmma(err, "bounded_key_split")
-    return bool(split.value)
+    return _key_split(q, k, 1 if pipelined else 2)
+
+
+def partial_key_split(q, k) -> bool:
+    """Whether kernel 3 splits the keys of these CUDA inputs by default: the
+    rule of bounded_key_split, on kernel 3's residency."""
+    return _key_split(q, k, 3)
 
 
 class Int8Operands(NamedTuple):

@@ -42,7 +42,7 @@ def build(tile: int) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed at tile {tile}:\n{log.stdout}{log.stderr}")
     dll = ctypes.CDLL(lib)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dll.drt_flash_wgmma_bounded.argtypes = [ptr] * 5 + [i32] * 5 + [f32, i32, ptr]
+    dll.drt_flash_wgmma_bounded.argtypes = [ptr] * 5 + [i32] * 5 + [f32, i32, i32, ptr]
     dll.drt_flash_wgmma_bounded.restype = i32
     dll.drt_flash_wgmma_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
     dll.drt_flash_wgmma_occupancy.restype = i32
@@ -80,7 +80,7 @@ def main() -> int:
         def launch(lib, pipelined, out):
             err = lib.drt_flash_wgmma_bounded(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                               mb.data_ptr(), b, l, l, h, d,
-                                              fa._q_scale_value(d, q.dtype), pipelined, stream)
+                                              fa._q_scale_value(d, q.dtype), pipelined, 0, stream)
             if err != 0:
                 raise RuntimeError(f"launch failed: code {err}")
 
@@ -94,7 +94,7 @@ def main() -> int:
             out = torch.empty_like(q)
             launch(lib, 0, out)
             torch.cuda.synchronize()
-            occ = (ctypes.c_int * 5)()
+            occ = (ctypes.c_int * 6)()
             if lib.drt_flash_wgmma_occupancy(2, d, occ) != 0:
                 raise RuntimeError("occupancy query failed")
             rec[f"bk{tile}"] = {"kernel7_ms": event_ms(lambda: launch(lib, 0, out), reps),

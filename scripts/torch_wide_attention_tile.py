@@ -138,7 +138,7 @@ def main() -> int:
         for name, lib in libs.items():
             if d == 512 and name != "default":
                 continue  # the same kernel at D = 512
-            occ = (ctypes.c_int * 5)()
+            occ = (ctypes.c_int * 6)()
             if lib.drt_flash_wgmma_occupancy(0, d, occ) != 0:
                 raise RuntimeError("occupancy query failed")
             r = {"registers": occ[0], "spill_bytes": occ[1], "smem_bytes": occ[2],

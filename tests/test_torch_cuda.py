@@ -7,15 +7,16 @@ a card and no JAX (tests/conftest.py imports JAX; skip it there):
 
 Every test is marked `cuda` and skips without a CUDA device.  Tolerances:
 the attention kernels compute in bf16 with fp32 softmax state and round
-where the plain version rounds (kernels 1, 2, 6 and 7 at every head dim
-and kernel 3 at D = 64 and 128 on wgmma, kernel 3 at 256 and 512 on
-mma.sync), so outputs differ by about one bf16 ulp on a few elements:
+where the plain version rounds (kernels 1, 2, 3, 6 and 7 at every head dim
+on wgmma), so outputs differ by about one bf16 ulp on a few elements:
 max |err| within 2e-2 of max |plain| (no floor) and a relative L2 error
 within 1e-2; the
 int8 attention kernel is held to its plain version at the kernel's own key
 tile; the partial-stats kernel's m and l and the bounded kernels' outputs
-to the same limits, and the partial-stats kernel's output at D = 64 and 128
-bitwise to the unbounded call's (one online body).  Kernel 6 is held
+to the same limits, and the partial-stats kernel's output, its keys not
+split, bitwise to the unbounded call's at every head dim (one online
+body); split at D = 256 and 512 (the halves merged with the online
+rescale), out, m and l to the same limits.  Kernel 6 is held
 bitwise to kernel 7 at every head dim: at D = 64 and 128 both are the
 wgmma body, which sums l per thread in key order and issues PV in k16
 order whatever the key tile (kernel 7 takes 128 keys a tile at D = 128,
@@ -159,13 +160,15 @@ def test_bounded_call_takes_each_branch_through_its_kernel(cuda, b, lq, lk, h, d
 
 def test_kernel_occupancy(cuda):
     """No spills, and at least 8 warps per SM resident, for the wgmma kernels:
-    the launch of kernels 1 and 2 and kernels 6 and 7 at every head dim,
-    kernel 3 at D = 64 and 128, kernel 5, and kernel 4 per channel and
+    the launch of kernels 1 and 2 and kernels 3, 6 and 7 at every head dim,
+    kernel 5 (two warpgroups at D = 512), and kernel 4 per channel and
     grouped."""
     occs = {(kernel, d, pv8): tfa.kernel_occupancy(kernel, d, pv8)
             for kernel, d, pv8 in (("attention", 64, False), ("attention", 128, False),
                                    ("attention", 256, False), ("attention", 512, False),
                                    ("partial", 64, False), ("partial", 128, False),
+                                   ("partial", 256, False), ("partial", 512, False),
+                                   ("int8", 512, False), ("int8", 512, True),
                                    ("bounded_pipe", 64, False), ("bounded_pipe", 128, False),
                                    ("bounded", 64, False), ("bounded", 128, False),
                                    ("bounded_pipe", 256, False), ("bounded_pipe", 512, False),
@@ -318,7 +321,8 @@ def test_w8a8_kernel_refuses_illegal_shapes(cuda):
                                          (1, 300, 200, 2, 64), (1, 4096, 4096, 1, 512),
                                          (2, 1000, 777, 1, 512), (2, 1024, 1024, 8, 256),
                                          (1, 300, 200, 2, 256), (2, 1000, 777, 4, 64),
-                                         (2, 777, 1000, 4, 256), (1, 100, 40, 2, 128)])
+                                         (2, 777, 1000, 4, 256), (1, 100, 40, 2, 128),
+                                         (5, 4096, 4096, 1, 512), (1, 300, 200, 3, 512)])
 @pytest.mark.parametrize("pv8", [False, True], ids=["qk8", "qk8pv8"])
 def test_int8_attention_kernel_matches_plain(cuda, b, lq, lk, h, d, pv8):
     q, k, v = qkv(cuda, b, lq, lk, h, d)
@@ -341,8 +345,8 @@ def test_int8_attention_refuses_other_head_dims(cuda):
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(q, k, v, pv_int8=True)
     q, k, v = qkv(cuda, 1, 64, 64, 1, 512)
-    with pytest.raises(ValueError, match="tiles of 32"):
-        tfa.flash_attention(q, k, v, pv_int8=True, block_k=64)
+    with pytest.raises(ValueError, match="tiles of 64"):
+        tfa.flash_attention(q, k, v, pv_int8=True, block_k=32)
 
 
 def test_pv_int8_backend_launches_the_int8_kernel_at_d512(cuda):
@@ -354,7 +358,8 @@ def test_pv_int8_backend_launches_the_int8_kernel_at_d512(cuda):
     got = attention(q, k, v, backend="pallas_pv_int8")
     torch.cuda.synchronize()
     assert tfa.LAUNCHES["flash_attention_int8"] == 1 and tfa.LAUNCHES["flash_attention"] == 0
-    assert_close(got, tfa.flash_attention_int8_plain(q, k, v, pv_int8=True, block_k=32))
+    assert_close(got, tfa.flash_attention_int8_plain(q, k, v, pv_int8=True,
+                                                     block_k=tfa.INT8_BLOCK_K[512]))
 
 
 def test_w8a8_dit_forward_kernels_vs_plain(cuda):
@@ -411,15 +416,80 @@ def test_partial_kernel_matches_plain(cuda, b, lq, lk, h, d, q_scale):
         assert_close(got_x, want_x)
 
 
-@pytest.mark.parametrize("b,lq,lk,h,d", [c for c in PARTIAL_CASES
-                                         if c[4] in tfa.PARTIAL_WGMMA_HEAD_DIMS])
+@pytest.mark.parametrize("b,lq,lk,h,d", PARTIAL_CASES)
 @pytest.mark.parametrize("q_scale", [1.0, 30.0])
 def test_partial_kernel_out_is_the_unbounded_call(cuda, b, lq, lk, h, d, q_scale):
-    """At D = 64, 128 kernel 3 is kernel 2's online body plus the stores of m
-    and l: its output is bit for bit the unbounded flash_attention's."""
+    """Kernel 3 is kernel 2's online body plus the stores of m and l (at D =
+    256, 512 on attend_wide): with its keys not split, its output is bit for
+    bit the unbounded flash_attention's at every head dim."""
     q, k, v = qkv(cuda, b, lq, lk, h, d, q_scale, seed=lq + lk + d + 3)
-    out, _, _ = tfa.flash_attention_partial(q, k, v)
+    out, _, _ = tfa.flash_attention_partial_kernel(q, k, v, key_split=False)
     assert torch.equal(out, tfa.flash_attention(q, k, v, bounded=False))
+
+
+def split_edge_qkv(device, b, lq, lk, h, d, low_rank: int, seed=0):
+    """Inputs whose keys in one half of the split (low_rank 0: the first
+    ceil(nk / 2) key tiles, 1: the rest) score far below the other half's:
+    RMS-normed keys and queries 10 times a key of the high half plus noise,
+    so a row's running max is about 10 * d / sqrt(d) * log2 e in the high
+    half (326 log2 units at D = 512) and some 50 in the low one.  Returns
+    q, k, v and the low half's key slice."""
+    bk = tfa.WIDE_BLOCK_K[d]
+    nk = -(-lk // bk)
+    cut = -(-nk // 2) * bk  # rank 1's first key
+    g = torch.Generator(device).manual_seed(seed)
+    k = torch.randn(b, lk, h, d, generator=g, device=device)
+    k = k * torch.rsqrt(k.square().mean(-1, keepdim=True))
+    high = (cut, lk) if low_rank == 0 else (0, cut)
+    idx = torch.randint(high[0], high[1], (lq,), generator=g, device=device)
+    q = 10.0 * (k[:, idx] + 0.05 * torch.randn(b, lq, h, d, generator=g, device=device))
+    v = torch.randn(b, lk, h, d, generator=g, device=device)
+    low = slice(0, cut) if low_rank == 0 else slice(cut, lk)
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), low
+
+
+# Kernel 3's key split at the wide heads (32-key tiles at D = 512, 64 at D =
+# 256): the VAE's encode shape, ragged lengths, and Lk = k * BK + 1, where
+# rank 1's last tile holds one real key.
+PARTIAL_SPLIT_CASES = [(1, 4096, 4096, 1, 512), (1, 1000, 1200, 1, 512), (1, 1000, 777, 2, 256),
+                       (2, 300, 97, 1, 512), (1, 200, 193, 2, 256)]
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", PARTIAL_SPLIT_CASES)
+@pytest.mark.parametrize("q_scale", [1.0, 100.0])
+def test_wide_partial_key_split_matches_plain(cuda, b, lq, lk, h, d, q_scale):
+    """Kernel 3 at D = 256, 512 with the keys split over 2-block clusters
+    (the halves merged with the online rescale) and without: out, m and l
+    each within the bf16 tolerance of the plain version, the split the
+    default at these shapes, and the same bits run after run."""
+    q, k, v = qkv(cuda, b, lq, lk, h, d, q_scale, seed=lq + lk + d + 5)
+    want = tfa.flash_attention_partial_plain(q, k, v)
+    assert tfa.partial_key_split(q, k)
+    split = tfa.flash_attention_partial_kernel(q, k, v, key_split=True)
+    whole = tfa.flash_attention_partial_kernel(q, k, v, key_split=False)
+    for got in (split, whole):
+        for got_x, want_x in zip(got, want):
+            assert_close(got_x, want_x)
+    again = tfa.flash_attention_partial_kernel(q, k, v)
+    for x, y in zip(split, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", [(1, 1000, 1200, 1, 512), (2, 300, 97, 1, 512),
+                                         (1, 200, 193, 2, 256)])
+@pytest.mark.parametrize("low_rank", [0, 1])
+def test_wide_partial_key_split_when_one_half_underflows(cuda, b, lq, lk, h, d, low_rank):
+    """One half's running max far below the other's: its merge factor is 0,
+    and the split call gives the other half's result, as the plain version
+    does over all keys."""
+    q, k, v, low = split_edge_qkv(cuda, b, lq, lk, h, d, low_rank, seed=lq + lk + d)
+    want = tfa.flash_attention_partial_plain(q, k, v)
+    m_low = tfa.flash_attention_partial_plain(q, k[:, low], v[:, low])[1]
+    assert (want[1] - m_low).min().item() > 150  # exp2f of the gap underflows to 0
+    got = tfa.flash_attention_partial_kernel(q, k, v, key_split=True)
+    for got_x, want_x in zip(got, want):
+        assert torch.isfinite(got_x).all()
+        assert_close(got_x, want_x)
 
 
 @pytest.mark.parametrize("b,lq,lk,h,d", CASES)
