@@ -41,9 +41,10 @@ sharded the same way, the context replicated on every rank.
 trainer, training/train.py), on one device and under a mesh or an
 executor: no op on its path writes a leaf in place or detaches, the flash
 attention takes its gradient through
-ops/flash_attention.FlashAttentionFunction, and the collectives carry their
-gradients.  Quantized leaves raise under autograd, and so does ring
-attention (the gradient of kernel 3's m and l is not ported, ROADMAP.md).
+ops/flash_attention.FlashAttentionFunction, ring attention
+(attn_backend='ring' under a mesh) through its own backward ring
+(parallel/ring_attention.py), and the collectives carry their gradients.
+Quantized leaves raise under autograd.
 """
 
 from __future__ import annotations

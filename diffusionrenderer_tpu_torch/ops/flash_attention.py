@@ -326,10 +326,14 @@ def flash_attention_int8_plain(q, k, v, *, pv_int8: bool = False,
 
 
 def flash_attention_backward_plain(q, k, v, out, m, l, do, *,
-                                   max_chunk_elems: int = 1 << 24):
+                                   max_chunk_elems: int = 1 << 24,
+                                   grad_dtype: Optional[torch.dtype] = None):
     """dq, dk, dv of softmax(q k^T / sqrt(D)) v from the forward's out and
     its partial statistics m (log2 domain) and l (flash_attention_partial),
-    in fp32, returned in q, k and v's dtypes:
+    in fp32, returned in q, k and v's dtypes, or all three in grad_dtype
+    (ring attention sums the blocks' shares in fp32).  Given the m, l and
+    out of more keys than k holds (a ring's merged statistics), P and D_i
+    are that whole softmax's, and the result is k's block's share:
 
         D_i = sum_d dO * O,  P = exp2(s' - m) / l with s' = q' k^T,
         dV = P^T dO,  dS = P * (dO V^T - D),
@@ -346,7 +350,7 @@ def flash_attention_backward_plain(q, k, v, out, m, l, do, *,
     rows = lq if heads > 1 else max(1, min(lq, max_chunk_elems // lk))
     qs = q_prescale(q)
     delta = (do.float() * out.float()).sum(dim=-1)  # (B, Lq, H)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv = (torch.empty_like(x, dtype=grad_dtype) for x in (q, k, v))
     for bi in range(b):
         for h0 in range(0, h, heads):
             h1 = min(h, h0 + heads)
@@ -798,9 +802,9 @@ def flash_attention_partial(q, k, v, block_q: Optional[int] = None,
     Shards merge exactly with o = out * l and an exp2 online-softmax combine
     (parallel/ring_attention.py).  Plain version for CPU tensors, kernel 3
     for CUDA tensors; block_q and block_k leave the result unchanged.
-    Raises under autograd (no gradient of m and l: ring attention's
-    backward is not ported); FlashAttentionFunction differentiates its
-    output."""
+    Raises under autograd (m and l have no gradient):
+    FlashAttentionFunction differentiates its output, and
+    parallel/ring_attention.RingAttentionFunction a ring of its calls."""
     refuse_under_grad("flash_attention_partial", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_partial_plain(q, k, v)

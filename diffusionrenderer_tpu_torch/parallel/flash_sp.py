@@ -8,7 +8,8 @@ data, heads ride tensor.  Under autograd the gather's backward
 reduce-scatters dK and dV over seq, and the attention on the gathered KV is
 ops/flash_attention.FlashAttentionFunction (kernel 3 forward on CUDA
 tensors).  impl='ring' dispatches to parallel/ring_attention.py instead (KV
-passed around the ring, nothing global ever materialized; no gradient).
+passed around the ring, nothing global ever materialized; under autograd
+its own ring of gradients, RingAttentionFunction on CUDA tensors).
 """
 
 from __future__ import annotations

@@ -13,9 +13,16 @@ impl='xla' uses plain einsum pieces.  All softmax statistics live in the
 log2 domain (the kernel pre-scales q by softmax_scale * log2 e), and the
 merge uses exp2 to match.
 
-It has no gradient: the backward of the partial-stats kernel's m and l is
-not ported (ROADMAP.md queue 1 item 7), so a call under
-autograd raises; the all-gather attention (flash_sp) trains.
+Both impls train.  impl='xla' is plain torch with `ShiftFunction` hops
+under autograd, so autograd differentiates it as jax.grad differentiates
+JAX's.  impl='flash' under autograd is `RingAttentionFunction`,
+differentiated as a whole: its forward saves q, this rank's k and v, the
+output and the merged (m, l); its backward passes each KV block around the
+ring again, with a gradient accumulator that travels beside it, and takes
+the block's share of (dq, dk, dv) from the plain chunked backward
+(ops/flash_attention.flash_attention_backward_plain) on the global m, l
+and output, whose P and D_i are the full softmax's.  dq sums over the hops
+in fp32 on its rank; one more hop brings each block's dk and dv home.
 """
 
 from __future__ import annotations
@@ -25,8 +32,8 @@ from typing import Tuple
 
 import torch
 
-from ..ops.flash_attention import flash_attention_partial
-from .collectives import shift
+from ..ops.flash_attention import flash_attention_backward_plain, flash_attention_partial
+from .collectives import ShiftFunction, shift
 from .sharding import Mesh
 
 _LOG2E = math.log2(math.e)
@@ -67,38 +74,75 @@ def _merge(state: State, update: State) -> State:
 
 def _rotate(tensors, mesh: Mesh):
     """Send each tensor to the next rank of the seq ring and receive the
-    previous rank's."""
-    return [shift(t, mesh.seq_group) for t in tensors]
+    previous rank's.  A tensor autograd records takes ShiftFunction (its
+    gradient hops back); inside RingAttentionFunction autograd records
+    nothing, so its hops are plain `shift`."""
+    return [ShiftFunction.apply(t, mesh.seq_group, 1)
+            if torch.is_grad_enabled() and t.requires_grad else shift(t, mesh.seq_group)
+            for t in tensors]
+
+
+def _ring(q, k, v, mesh: Mesh, partial_fn):
+    """The ring's forward: (out in q's dtype, the merged fp32 (B, H, Lq) m
+    and l over every rank's keys)."""
+    state = partial_fn(q, k, v)
+    for _ in range(mesh.seq - 1):
+        k, v = _rotate((k, v), mesh)
+        state = _merge(state, partial_fn(q, k, v))
+    m, l, o = state
+    return (o / l.permute(0, 2, 1)[..., None]).to(q.dtype), m, l
+
+
+class RingAttentionFunction(torch.autograd.Function):
+    """Ring attention on the partial-stats flash block with a gradient:
+    kernel 3 at each hop of the forward on CUDA tensors (its plain version
+    on CPU ones), and a backward ring of the plain chunked backward, which
+    launches no kernel (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mesh):
+        out, m, l = _ring(q, k, v, mesh, _partial_attn_flash)
+        ctx.mesh = mesh
+        ctx.save_for_backward(q, k, v, out, m, l)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, m, l = ctx.saved_tensors
+        mesh = ctx.mesh
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros_like(dk)
+        for hop in range(mesh.seq):
+            if hop:  # the block and its gradient so far move on together
+                k, v, dk, dv = _rotate((k, v, dk, dv), mesh)
+            gq, gk, gv = flash_attention_backward_plain(q, k, v, out, m, l, do,
+                                                        grad_dtype=torch.float32)
+            dq += gq
+            dk += gk
+            dv += gv
+        # After seq - 1 hops each rank holds the block of the rank ahead.
+        dk, dv = _rotate((dk, dv), mesh)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
 
 
 def ring_attention_local(q, k, v, mesh: Mesh, impl: str = "auto") -> torch.Tensor:
     """Per-rank body: q, k, v are this rank's (B, L_local, H, D) token
     shards; returns its (B, L_local, H, D) output.  impl: 'flash' (the
-    partial-stats kernel's wrapper), 'xla' (plain pieces), or 'auto' (flash
-    for CUDA tensors, xla otherwise).  Raises under autograd."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "ring attention has no gradient yet (the backward of kernel 3's m and l: "
-            "ROADMAP.md queue 1 item 7, ring attention's backward); train with "
-            "attn_backend='flash_sp' or 'auto' (the all-gathered KV)")
+    partial-stats kernel's wrapper; RingAttentionFunction under autograd),
+    'xla' (plain pieces, which autograd differentiates), or 'auto' (flash
+    for CUDA tensors, xla otherwise)."""
     if impl == "auto":
         impl = "flash" if q.is_cuda else "xla"
     if impl == "flash":
-        partial_fn = _partial_attn_flash
-    elif impl == "xla":
-        scale2 = _LOG2E / math.sqrt(q.shape[-1])
-
-        def partial_fn(qq, kk, vv):
-            return _partial_attn_xla(qq, kk, vv, scale2)
-    else:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return RingAttentionFunction.apply(q, k, v, mesh)
+        return _ring(q, k, v, mesh, _partial_attn_flash)[0]
+    if impl != "xla":
         raise ValueError(f"unknown ring attention impl {impl!r}")
-
-    state = partial_fn(q, k, v)
-    for _ in range(mesh.seq - 1):
-        k, v = _rotate((k, v), mesh)
-        state = _merge(state, partial_fn(q, k, v))
-    _, l, o = state
-    return (o / l.permute(0, 2, 1)[..., None]).to(q.dtype)
+    scale2 = _LOG2E / math.sqrt(q.shape[-1])
+    return _ring(q, k, v, mesh, lambda qq, kk, vv: _partial_attn_xla(qq, kk, vv, scale2))[0]
 
 
 def make_ring_attention(mesh: Mesh, impl: str = "auto"):

@@ -921,6 +921,51 @@ def test_flash_function_grads_match_fp32_autograd(cuda, b, lq, lk, h, d):
         assert math.isfinite(rel) and rel <= 1e-2, rel
 
 
+@pytest.fixture
+def one_rank_mesh(cuda):
+    """A one-rank gloo group on the card (no collective runs at one rank)."""
+    import socket
+
+    import torch.distributed as dist
+    from diffusionrenderer_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(cuda, backend="gloo", init_method=f"tcp://localhost:{port}",
+                           world_size=1, rank=0)
+    try:
+        yield make_mesh(1, data=1, seq=1, tensor=1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("b,l,h,d", [(1, 1024, 8, 128), (2, 300, 2, 64)])
+def test_ring_function_grads_match_plain(cuda, one_rank_mesh, b, l, h, d):
+    """Ring attention's gradient on the card (RingAttentionFunction: one
+    kernel-3 launch a forward, the plain backward ring) vs its plain
+    version, the ring's impl='xla' under autograd in fp32 on the same
+    inputs: rel L2 <= 1e-2 for dq, dk, dv; and vs FlashAttentionFunction."""
+    from diffusionrenderer_tpu_torch.parallel import ring_attention_local
+
+    q, k, v = qkv(cuda, b, l, l, h, d, seed=l + d)
+    do = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(6),
+                     device=cuda).bfloat16()
+    tfa.reset_counts()
+    out, got = grads_of(lambda *t: ring_attention_local(*t, one_rank_mesh), q, k, v, do)
+    assert tfa.VARIANT_LAUNCHES["flash_attention_partial"] == 1
+    assert tfa.LAUNCHES["flash_attention"] == 0
+    want_out, want = grads_of(lambda *t: ring_attention_local(*t, one_rank_mesh, impl="xla"),
+                              q.float(), k.float(), v.float(), do.float())
+    _, function = grads_of(tfa.FlashAttentionFunction.apply, q, k, v, do)
+    assert_close(out, want_out)
+    for g, w, f in zip(got, want, function):
+        assert g.dtype == torch.bfloat16
+        for ref in (w, f.float()):
+            rel = ((g.float() - ref).norm() / ref.norm()).item()
+            assert math.isfinite(rel) and rel <= 1e-2, rel
+
+
 def test_inference_route_unchanged_under_no_grad(cuda):
     q, k, v = qkv(cuda, 1, 1024, 1024, 4, 128)
     want = tfa.flash_attention(q, k, v, bounded=True)

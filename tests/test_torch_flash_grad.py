@@ -5,20 +5,32 @@ jax.grad of the JAX package's attention_xla, in fp32, at head dims 64 and
 128 with Lq != Lk and lengths that fill no tile.  Tolerance 2e-5 of the
 largest gradient element: fp32 sums over at most 300 keys in another order.
 
+Ring attention's gradient on one rank (an in-process gloo group of one):
+RingAttentionFunction's backward is flash_attention_backward_plain's on
+the ring's out, m and l, bit for bit (one hop: its fp32 sums start at zero);
+'xla' and 'flash' give the Function's gradients to TOL; grad_dtype=fp32
+returns the same values before the cast.  The multi-rank rings are held
+to jax.grad in tests/test_torch_parallel.py.
+
 Also: the routes under autograd (the Function whatever `bounded` says, the
 dispatcher's 'pallas' / 'pallas_onlinemax' / 'auto'), the refusals of the
 routes that have no gradient, and that inference under no_grad keeps its
 route and values."""
+
+import socket
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from diffusionrenderer_tpu.ops.attention import attention_xla as j_attention_xla
 from diffusionrenderer_tpu_torch.ops import flash_attention as tfa
 from diffusionrenderer_tpu_torch.ops.attention import attention, attention_xla
+from diffusionrenderer_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                                  ring_attention_local)
 
 TOL = 2e-5
 
@@ -78,6 +90,54 @@ def test_backward_chunks_agree(chunk):
     parts = tfa.flash_attention_backward_plain(q, k, v, out, m, l, do, max_chunk_elems=chunk)
     for a, b in zip(parts, whole):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_backward_grad_dtype_is_fp32_before_the_cast():
+    q, k, v, do = (torch.from_numpy(x).bfloat16() for x in inputs(1, 70, 90, 2, 64, seed=6))
+    out, m, l = tfa.flash_attention_partial_plain(q, k, v)
+    f32 = tfa.flash_attention_backward_plain(q, k, v, out, m, l, do, grad_dtype=torch.float32)
+    same = tfa.flash_attention_backward_plain(q, k, v, out, m, l, do)
+    for a, b in zip(f32, same):
+        assert a.dtype == torch.float32 and b.dtype == torch.bfloat16
+        assert torch.equal(a.bfloat16(), b)
+
+
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_distributed("cpu", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        yield make_mesh(1, data=1, seq=1, tensor=1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_function_on_one_rank_is_the_plain_backward(one_rank_mesh, dtype):
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in inputs(2, 96, 96, 2, 64, seed=7))
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ring_attention_local(*ts, one_rank_mesh, impl="flash")
+    assert type(out.grad_fn).__name__ == "RingAttentionFunctionBackward"
+    out.backward(do)
+    _, m, l = tfa.flash_attention_partial_plain(q, k, v)
+    want = tfa.flash_attention_backward_plain(q, k, v, out.detach(), m, l, do)
+    for t, w in zip(ts, want):
+        assert t.grad.dtype == dtype and torch.equal(t.grad, w)
+
+
+def test_ring_impls_on_one_rank_match_the_function(one_rank_mesh):
+    q, k, v, do = inputs(1, 80, 80, 3, 64, seed=8)
+    out, got = port_grads(lambda *t: ring_attention_local(*t, one_rank_mesh, impl="flash"),
+                          q, k, v, do)
+    want_out, want = port_grads(tfa.FlashAttentionFunction.apply, q, k, v, do)
+    np.testing.assert_allclose(out, want_out, rtol=1e-5, atol=1e-5)
+    assert_grads_close(got, want)
+    for impl in ("xla", "auto"):  # 'auto' on CPU tensors is 'xla', plain autograd
+        _, xla = port_grads(lambda *t: ring_attention_local(*t, one_rank_mesh, impl=impl),
+                            q, k, v, do)
+        assert_grads_close(xla, want)
 
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas_onlinemax"])

@@ -11,6 +11,12 @@ joined with its own timeout.  Covered, in fp32:
   all-gather KV; 'ring') at (data, seq) = (1, 4) and (2, 2), against JAX's
   make_ring_attention / make_sp_attention: 1e-5 (exact attention computed
   in differently ordered fp32 sums);
+* the q, k and v gradients of sum(out * w), w seeded, through ring
+  attention 'xla' (autograd over ShiftFunction hops), 'flash'
+  (RingAttentionFunction, kernel 3's plain version here) and
+  make_sp_attention('ring'), against jax.grad of JAX's
+  make_ring_attention(impl='xla') on the same mesh: 1e-5 of the largest
+  element;
 * a tiny sharded dit_forward ('ring', 'flash_sp', and 'auto', which on
   CPU tensors is the plain attention on the all-gathered KV) against the
   unsharded port and JAX's sharded forward: rtol 1e-4, atol 1e-5, as
@@ -107,14 +113,19 @@ def qkv():
 
 
 @pytest.fixture(scope="module")
-def mesh_runs(tmp_path_factory, qkv, dit_inputs):
-    """Each mesh's rank-0 results: attention and the DiT forward."""
+def out_weight(qkv):
+    return np.random.default_rng(6).standard_normal(qkv[0].shape).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory, qkv, out_weight, dit_inputs):
+    """Each mesh's rank-0 results: attention, its gradients and the DiT forward."""
     runs = {}
     dit = {k: dit_inputs[k] for k in ("params", "x", "cond", "sigma", "ctx")}
     for data, seq in MESHES:
         workdir = tmp_path_factory.mktemp(f"mesh_{data}x{seq}")
         with open(workdir / "inputs.pkl", "wb") as f:
-            pickle.dump({"qkv": qkv, "dit": dit}, f)
+            pickle.dump({"qkv": qkv, "w": out_weight, "dit": dit}, f)
         runs[data, seq] = run_ranks("mesh", workdir, data, seq)
     return runs
 
@@ -132,6 +143,30 @@ def test_sequence_parallel_attention_matches_jax(mesh_runs, qkv, data, seq, name
     want = np.asarray(j_make_ring(mesh)(jq, jk, jv) if impl == "ring"
                       else j_make_sp(mesh, impl="flash")(jq, jk, jv))
     np.testing.assert_allclose(mesh_runs[data, seq][name], want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def jax_ring_grads(qkv, out_weight):
+    """jax.grad of sum(make_ring_attention(mesh, impl='xla')(q, k, v) * w)
+    on each mesh: [dq, dk, dv]."""
+    grads = {}
+    for data, seq in MESHES:
+        ring = j_make_ring(_jax_mesh(data, seq), impl="xla")
+        w = jnp.asarray(out_weight)
+        fn = jax.jit(jax.grad(lambda q, k, v: jnp.sum(ring(q, k, v) * w), argnums=(0, 1, 2)))
+        grads[data, seq] = [np.asarray(g) for g in fn(*(jnp.asarray(x) for x in qkv))]
+    return grads
+
+
+@pytest.mark.parametrize("data,seq", MESHES)
+@pytest.mark.parametrize("name", ["ring_xla", "ring_flash", "sp_ring"])
+def test_sequence_parallel_attention_grads_match_jax(mesh_runs, jax_ring_grads, data, seq,
+                                                     name):
+    got = mesh_runs[data, seq][f"grad_{name}"]
+    for which, g, w in zip("qkv", got, jax_ring_grads[data, seq]):
+        scale = np.abs(w).max()
+        assert scale > 0 and np.abs(g - w).max() <= 1e-5 * scale, (
+            which, np.abs(g - w).max(), scale)
 
 
 @pytest.mark.parametrize("data,seq", MESHES)

@@ -9,7 +9,9 @@ does.  Covered, at tests/test_torch_train.py's tolerances:
 
 * one edm_loss's gradient of every leaf, gathered whole from the tensor
   shards: within 1e-5 of the leaf's largest element of jax.grad, and of
-  the unsharded port; the loss 1e-5 relative.  The q/k norms (shared by
+  the unsharded port; the loss 1e-5 relative.  The same through
+  edm_loss(attn_backend='ring') (ring attention over seq, exact attention:
+  JAX's gradient is its reference too), at the same bounds.  The q/k norms (shared by
   the heads a tensor rank splits) and every replicated leaf get a gradient;
   the cross-attention's q / k leaves, which nothing reads, get none;
 * a three-step AdamW trajectory: losses 1e-5 relative against JAX's
@@ -87,15 +89,16 @@ def _port_flat(tree):
             .items()}
 
 
-@pytest.mark.parametrize("mesh", MESHES)
-def test_sharded_gradients_match_jax_leaf_by_leaf(runs, setup, mesh):
+@pytest.fixture(scope="module")
+def reference_grads(setup):
+    """One edm_loss's loss and leaf gradients: jax.grad's, and the unsharded
+    port's on the same draws."""
     jb = {k: jnp.asarray(v) for k, v in setup["batch"].items()}
     loss_fn = jax.jit(lambda p, key: j_edm_loss(p, *jb.values(), key, jcfg(),
                                                 condition_drop_rate=0.5))
     jloss, jgrads = jax.value_and_grad(loss_fn)(jax.tree.map(jnp.asarray, setup["params"]),
                                                 setup["keys"][0])
     want = _port_flat(jax.device_get(jgrads))
-    # The unsharded port on the same draws.
     tp = dit_params_from_numpy(setup["params"], CFG, device="cpu")
     for p in flatten(tp).values():
         p.requires_grad_(True)
@@ -104,9 +107,14 @@ def test_sharded_gradients_match_jax_leaf_by_leaf(runs, setup, mesh):
                     draws=EdmDraws(*map(torch.from_numpy, setup["draws"][0])))
     loss.backward()
     solo = {k: None if p.grad is None else p.grad.numpy() for k, p in flatten(tp).items()}
-    for rank, out in enumerate(runs[mesh]):
-        np.testing.assert_allclose(out["loss"], float(jloss), rtol=1e-5)
-        got = out["grads"]
+    return float(jloss), want, solo
+
+
+def _assert_leaf_grads(outs, reference_grads, suffix=""):
+    jloss, want, solo = reference_grads
+    for rank, out in enumerate(outs):
+        np.testing.assert_allclose(out["loss" + suffix], jloss, rtol=1e-5)
+        got = out["grads" + suffix]
         assert set(got) == set(want)
         for key, w in want.items():
             if key.endswith(UNUSED):
@@ -117,6 +125,16 @@ def test_sharded_gradients_match_jax_leaf_by_leaf(runs, setup, mesh):
             assert scale > 0, key
             assert np.abs(got[key] - w).max() <= 1e-5 * scale, (rank, key)
             assert np.abs(got[key] - solo[key]).max() <= 1e-5 * scale, (rank, key)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sharded_gradients_match_jax_leaf_by_leaf(runs, reference_grads, mesh):
+    _assert_leaf_grads(runs[mesh], reference_grads)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_ring_attention_gradients_match_jax_leaf_by_leaf(runs, reference_grads, mesh):
+    _assert_leaf_grads(runs[mesh], reference_grads, "_ring")
 
 
 @pytest.mark.parametrize("mesh", MESHES)

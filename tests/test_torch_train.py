@@ -341,12 +341,6 @@ def test_refusals_under_grad():
         with torch.no_grad():  # inference on the same tree still runs
             dit_forward(qp, x, torch.ones(2), nb["latent_condition"], nb["context_index"],
                         CFG_D64)
-    # Ring attention: kernel 3's m and l have no gradient.
-    from diffusionrenderer_tpu_torch.parallel import ring_attention_local
-
-    q = torch.ones(1, 4, 2, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ring attention's backward"):
-        ring_attention_local(q, q, q, mesh=None)
     with pytest.raises(ValueError, match="not divisible by grad_accum 3"):
         make_train_step(CFG_D64, opt, grad_accum=3)(init_train_state(tp, opt), nb,
                                                     torch.Generator())

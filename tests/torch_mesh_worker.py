@@ -276,7 +276,7 @@ def _train_mesh(inputs):
 
 def case_train(inputs):
     """On make_mesh(data, seq, tensor): every leaf's gradient of one edm_loss
-    (gathered whole), a 3-step AdamW trajectory on injected draws (losses
+    (gathered whole), with the default attention and with ring attention, a 3-step AdamW trajectory on injected draws (losses
     and whole parameters), and train_loop run straight and resumed."""
     mesh = _train_mesh(inputs)
     t = inputs["train"]
@@ -295,6 +295,18 @@ def case_train(inputs):
     loss.backward()
     out["loss"] = float(loss)
     out["grads"] = _flat_np(unshard(tree_map(lambda p: p.grad, params), shardings, mesh))
+
+    # The same loss through ring attention over seq (exact attention, so
+    # JAX's sharded gradient is its reference too).
+    params = shard_params(_params(t["params"], SHARD_CFG), shardings)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    loss = edm_loss(params, batch["latents"], batch["latent_condition"], batch["context_index"],
+                    None, SHARD_CFG, condition_drop_rate=0.5, seq_sharding_constraint=constraint,
+                    draws=EdmDraws(*map(torch.from_numpy, t["draws"][0])), attn_backend="ring")
+    loss.backward()
+    out["loss_ring"] = float(loss)
+    out["grads_ring"] = _flat_np(unshard(tree_map(lambda p: p.grad, params), shardings, mesh))
 
     opt = make_optimizer(t["lr"])
     step = make_train_step(SHARD_CFG, opt, condition_drop_rate=0.5,

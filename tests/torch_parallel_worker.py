@@ -56,12 +56,19 @@ def _mesh_case(mesh, inputs):
 
     q, k, v = (local(x) for x in inputs["qkv"])
     rows = inputs["qkv"][0].shape[0]
-    out = {
-        "ring_xla": whole(make_ring_attention(mesh, impl="xla")(q, k, v), rows),
-        "ring_flash": whole(make_ring_attention(mesh, impl="flash")(q, k, v), rows),
-        "sp_flash": whole(make_sp_attention(mesh, impl="flash")(q, k, v), rows),
-        "sp_ring": whole(make_sp_attention(mesh, impl="ring")(q, k, v), rows),
-    }
+    routes = {"ring_xla": make_ring_attention(mesh, impl="xla"),
+              "ring_flash": make_ring_attention(mesh, impl="flash"),
+              "sp_flash": make_sp_attention(mesh, impl="flash"),
+              "sp_ring": make_sp_attention(mesh, impl="ring")}
+    with torch.no_grad():
+        out = {name: whole(fn(q, k, v), rows) for name, fn in routes.items()}
+    # The gradients of sum(out * w) with respect to this rank's q, k, v
+    # shards, gathered whole.
+    w = local(inputs["w"])
+    for name in ("ring_xla", "ring_flash", "sp_ring"):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (routes[name](*ts) * w).sum().backward()
+        out[f"grad_{name}"] = [whole(t.grad, rows) for t in ts]
     d = inputs["dit"]
     params = dit_params_from_numpy(d["params"], SHARD_CFG, device="cpu")
     x, cond, sigma, ctx = (batch_slice(torch.from_numpy(d[n]), mesh)
