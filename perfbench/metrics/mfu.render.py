@@ -1,0 +1,17 @@
+"""The DiT model FLOPs of the traced window's whole jobs (the benchmark's
+own count over the config's shapes) over the window times the card's bf16
+peak (989 TFLOP/s at 700 W; the result line carries the card's power
+limit)."""
+
+from perfbench.harness import flops, peaks
+
+
+def read(rec, ctx):
+    if rec.trace is None or not rec.jobs:
+        return None
+    s = rec.shape
+    tokens = flops.dit_tokens(ctx.config["net"], s["latent_thw"])
+    per_job = s["steps"] * flops.dit_forward_flops(ctx.config["net"], s["rows"] * s["cfg_rows"],
+                                                   tokens)
+    window = (rec.trace.end_ns - rec.trace.start_ns) / 1e9
+    return 100.0 * len(rec.jobs) * per_job / (window * peaks.BF16_FLOPS)
