@@ -289,6 +289,12 @@ card); the sharded and ring steps (30(f), 31) run eagerly.
                launches per microbatch; step walls, each shape's allocated
                and reserved peaks, capture seconds, the shared pool, and one
                replayed step under torch.profiler (device time, idle share).
+  36. fused norm chains - csrc/dit_fused.cu's residual_ln_modulate at its
+               three DiT call sites and qk_rmsnorm_rope, at the inverse and
+               forward token counts (D = 4096, 32 heads of 128): each against
+               its plain chain, its device ms (queued) beside its byte bound
+               and the plain chain's ms, and the sums per DiT forward.
+               `python3 chip_smoke.py 36` runs phases 1, 2 and 36 alone.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -4566,10 +4572,10 @@ class timed_captures:
         self._real = real = tp._GraphRunner.capture
         records = self.records
 
-        def capture(runner, key, fn, inputs, extra=None):
+        def capture(runner, key, fn, inputs, extra=None, since=None):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            entry = real(runner, key, fn, inputs, extra)
+            entry = real(runner, key, fn, inputs, extra, since)
             torch.cuda.synchronize()
             kind = ("step" if isinstance(runner, tp._StepGraphs) else key[0]
                     if isinstance(runner, tp._VaeGraphs) else "train")
@@ -4931,7 +4937,109 @@ def compiled_train_phase(seed: int = 34):
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 36: the DiT's fused norm chains
+# ---------------------------------------------------------------------------
+
+# Kernel 1 at its DiT call sites (the pending residuals: "full" (B, L, D),
+# "row" (B, 1, D)) and whether it writes the modulated norm; per block the
+# FA norm, the FA and one-token CA residuals with the MLP norm, and the MLP
+# residual (the final layer's norm is the FA norm's shape once a forward).
+FUSED_SITES = {"fa_norm": ((), True), "fa_ca_residuals_mlp_norm": (("full", "row"), True),
+               "mlp_residual": (("full",), False)}
+FUSED_TOKENS = {"inverse": (5, 1024), "forward": (1, 1024)}
+
+
+def fused_site_inputs(b, l, site, d=4096, seed=36):
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def r(*size, scale=1.0):
+        return (torch.randn(*size, generator=g, device="cuda") * scale).bfloat16()
+
+    residuals, norm = FUSED_SITES[site]
+    pending = [(r(b, l if kind == "full" else 1, d), r(b, d, scale=0.3)) for kind in residuals]
+    shift, scale = (r(b, d, scale=0.3), r(b, d, scale=0.3)) if norm else (None, None)
+    return r(b, l, d, scale=2.0), pending, shift, scale
+
+
+def fused_bound_ms(nbytes: int) -> float:
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def fused_norms_phase(reps: int = 50):
+    """Kernels 1 and 2 of csrc/dit_fused.cu at the inverse (5, 1024) and
+    forward (1, 1024) token counts, D = 4096, 32 heads of 128: each launch
+    against its plain chain (x' bitwise, the rest within the kernels'
+    tolerance), its device ms (CUDA events, every launch queued behind a
+    sleep kernel: the host's launch cost does not show), its byte bound
+    (each activation read and each output written once at 3.35 TB/s; the
+    (B, D) rows and tables counted too) and the plain chain's ms; then per
+    DiT forward (28 blocks: 3 kernel-1 launches and 1 kernel-2 a block, the
+    final norm)."""
+    import torch
+
+    from diffusionrenderer_tpu_torch.ops import dit_fused as tdf
+    from diffusionrenderer_tpu_torch.ops.rope import rope_3d_angles
+
+    rec = {}
+    for label, (b, l) in FUSED_TOKENS.items():
+        rows = {}
+        for site in FUSED_SITES:
+            x, pending, shift, scale = fused_site_inputs(b, l, site)
+            got = tdf.residual_ln_modulate_kernel(x, pending, shift, scale)
+            want = tdf.residual_ln_modulate_plain(x, pending, shift, scale)
+            check(torch.equal(got[0], want[0]), f"{site} {label}: x' differs from the plain chain")
+            if shift is not None:
+                err, rel, ok = compare(got[1], want[1])
+                check(ok, f"{site} {label}: xm against the plain chain {err:.3g} / {rel:.3g}")
+            reads = [x, *(t for p in pending for t in p), shift, scale]
+            writes = [got[0] if pending else None, got[1]]
+            nbytes = sum(t.numel() * t.element_size() for t in reads + writes if t is not None)
+            rows[site] = {
+                "kernel_ms": queued_ms(lambda: tdf.residual_ln_modulate_kernel(
+                    x, pending, shift, scale), reps),
+                "bound_ms": fused_bound_ms(nbytes),
+                "plain_ms": queued_ms(lambda: tdf.residual_ln_modulate_plain(
+                    x, pending, shift, scale), reps)}
+        g = torch.Generator("cuda").manual_seed(37)
+        q, k = (torch.randn(b, l, 32, 128, generator=g, device="cuda").mul(3).bfloat16()
+                for _ in range(2))
+        wq, wk = ((1 + 0.1 * torch.randn(128, generator=g, device="cuda")).bfloat16()
+                  for _ in range(2))
+        angles = rope_3d_angles(1, 32, 32, 128, device="cuda")
+        cos, sin = torch.cos(angles), torch.sin(angles)
+        got = tdf.qk_rmsnorm_rope_kernel(q, k, wq, wk, cos, sin)
+        want = tdf.qk_rmsnorm_rope_plain(q, k, wq, wk, cos, sin)
+        for name, a, w in zip("qk", got, want):
+            err, rel, ok = compare(a, w)
+            check(ok, f"qk_rmsnorm_rope {label}: {name} against the plain chain "
+                      f"{err:.3g} / {rel:.3g}")
+        rows["qk_rmsnorm_rope"] = {
+            "kernel_ms": queued_ms(lambda: tdf.qk_rmsnorm_rope_kernel(q, k, wq, wk, cos, sin),
+                                   reps),
+            "bound_ms": fused_bound_ms(4 * q.numel() * 2 + 2 * cos.numel() * 4),
+            "plain_ms": queued_ms(lambda: tdf.qk_rmsnorm_rope_plain(q, k, wq, wk, cos, sin),
+                                  reps)}
+        for key in ("kernel_ms", "bound_ms", "plain_ms"):
+            rows.setdefault("per_forward", {})[key] = (
+                28 * sum(rows[s][key] for s in (*FUSED_SITES, "qk_rmsnorm_rope"))
+                + rows["fa_norm"][key])
+        for name, r in rows.items():
+            say(f"  {label} {name}: kernel {r['kernel_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({100 * r['bound_ms'] / r['kernel_ms']:.1f}% of it), plain "
+                f"{r['plain_ms']:.4f} ms")
+        rec[label] = rows
+    say("fused_norms " + json.dumps(rec))
+    return rec
+
+
+def main(argv) -> int:
+    if argv not in ([], ["36"]):
+        print("usage: python3 chip_smoke.py [36]  (36: phases 1, 2 and 36 alone)",
+              file=sys.stderr)
+        return 2
     if not os.path.isdir(os.path.join(ROOT, "diffusionrenderer_tpu_torch")):
         print("chip_smoke.py runs from the root of a checkout: the package "
               "diffusionrenderer_tpu_torch is not beside it", file=sys.stderr)
@@ -4948,6 +5056,14 @@ def main() -> int:
     card = device_phase()
     t = phase("2 build")
     occ = build_phase()
+    if argv == ["36"]:
+        t = phase("36 fused norm chains: kernels vs plain chains, timed")
+        fused_norms_phase()
+        say(f"  phase 36: {time.perf_counter() - t:.1f} s")
+        say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                               "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return 0
     t = phase("3 kernels vs plain")
     errs = kernels_phase()
     say(f"  phase 3: {time.perf_counter() - t:.1f} s")
@@ -5110,7 +5226,10 @@ def main() -> int:
     say(f"  phase 34: {time.perf_counter() - t:.1f} s")
     t = phase("35 compiled train step: FADITV2_7B steps replayed against eager ones")
     compiled_train = compiled_train_phase()
-    say(f"  phase 35: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
+    say(f"  phase 35: {time.perf_counter() - t:.1f} s")
+    t = phase("36 fused norm chains: kernels vs plain chains, timed")
+    records.append({"name": "dit_fused", **fused_norms_phase()})
+    say(f"  phase 36: {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_all:.1f} s")
     kernel3 = next(r for r in records if r["name"] == "flash_attention_partial")
     kernel3["launches_train_steps"] = [s_["kernel3_launches"] for s_ in train["7b"]["steps"]]
     kernel3["launches_train_note"] = ("FADITV2_7B train steps (3 at batch 1, 2 at batch 2 "
@@ -5179,4 +5298,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -18,6 +18,14 @@ are a list walked by a Python loop (the JAX package stacks them for
 * fp32 AdaLN, RMSNorm and LayerNorm statistics; matmuls in the weights'
   dtype with fp32 accumulation.
 
+On the card, in bf16 and outside autograd, the norm chains are two
+hand-written kernels (csrc/dit_fused.cu, ops/dit_fused.py): a sub-block
+leaves its gated residual (out, gate) pending and the next norm adds it in
+the same pass (residual_ln_modulate), and the self-attention's q / k
+RMSNorm and RoPE are one launch (qk_rmsnorm_rope_kernel).  Elsewhere (the
+CPU, the trainer) the plain ops run op for op, in the order they always
+ran (_settled).
+
 Every block matmul goes through models/quant.dense_maybe_quantized, so a
 block's dict may hold int8 leaves (weight-only or W8A8, per channel or per
 group); a '_mixN' list mixes bf16 and quantized blocks.  `capture` is the
@@ -57,7 +65,8 @@ import torch.nn.functional as F
 
 from ..config import DiTConfig
 from ..ops.attention import attention, attention_xla
-from ..ops.norms import adaln_modulation, layer_norm_no_affine, modulate, rms_norm
+from ..ops import dit_fused as _fused
+from ..ops.norms import adaln_modulation, rms_norm
 from ..ops.patch import patch_embed, unpatchify
 from ..ops.rope import apply_rope, rope_3d_angles
 from ..ops.timestep import timestep_embedding
@@ -154,12 +163,6 @@ def _adaln_chunks(emb, lora, bp, dtype, n_chunks=3):
     return [c.to(dtype) for c in mod.chunk(n_chunks, dim=-1)]
 
 
-def _adaln(x, emb, lora, bp):
-    """((shift, scale, gate), modulated x) of one sub-block."""
-    chunks = _adaln_chunks(emb, lora, bp, x.dtype)
-    return chunks, modulate(layer_norm_no_affine(x), chunks[0], chunks[1])
-
-
 def _column_input(x, tensor_group):
     """A replicated activation entering column-parallel matmuls: its
     gradient is summed over the tensor group (Megatron's f)."""
@@ -181,10 +184,12 @@ def _row_output(x, w, tensor_group):
     return _dense(x, w, row_group=tensor_group)
 
 
-def _self_attention_block(x, emb, lora, bp, cos, sin, head_dim: int,
+def _self_attention_block(x, pending, emb, lora, bp, cos, sin, head_dim: int,
                           attn_backend: AttnBackend, capture: Capture = None,
-                          tensor_group=None) -> torch.Tensor:
-    (_, _, gate), xm = _adaln(x, emb, lora, bp)
+                          tensor_group=None):
+    """(x plus the pending residuals, [this sub-block's (out, gate)])."""
+    shift, scale, gate = _adaln_chunks(emb, lora, bp, x.dtype)
+    x, xm = _fused.residual_ln_modulate(x, pending, shift, scale)
     b, l, _ = xm.shape
     if capture is not None:
         capture("fa.qkv", xm)
@@ -196,8 +201,12 @@ def _self_attention_block(x, emb, lora, bp, cos, sin, head_dim: int,
     # Per-head q/k RMSNorm, identity on v (the "RRI" scheme).  The norm
     # weights are shared by every head, so under tensor parallelism each
     # rank's gradient of them is a partial sum over its heads.
-    q = apply_rope(rms_norm(q, _head_shared(bp["q_norm"], tensor_group)), cos, sin)
-    k = apply_rope(rms_norm(k, _head_shared(bp["k_norm"], tensor_group)), cos, sin)
+    if _fused.takes_qk_kernel(q, k, bp["q_norm"], bp["k_norm"]):  # q and k in one launch
+        q, k = _fused.qk_rmsnorm_rope_kernel(q, k, _head_shared(bp["q_norm"], tensor_group),
+                                             _head_shared(bp["k_norm"], tensor_group), cos, sin)
+    else:
+        q = apply_rope(rms_norm(q, _head_shared(bp["q_norm"], tensor_group)), cos, sin)
+        k = apply_rope(rms_norm(k, _head_shared(bp["k_norm"], tensor_group)), cos, sin)
     if callable(attn_backend):  # sequence-parallel attention over the mesh
         o = attn_backend(q, k, v)
     else:
@@ -205,12 +214,13 @@ def _self_attention_block(x, emb, lora, bp, cos, sin, head_dim: int,
     o = o.reshape(b, l, -1)
     if capture is not None:
         capture("fa.wo", o)
-    return x + gate[:, None, :] * _row_output(o, bp["wo"], tensor_group)
+    return x, [(_row_output(o, bp["wo"], tensor_group), gate)]
 
 
-def _cross_attention_block(x, emb, lora, bp, context, head_dim: int, capture: Capture = None,
-                           tensor_group=None) -> torch.Tensor:
-    """Cross-attention over the (B, M, C_ctx) context.
+def _cross_attention_block(x, pending, emb, lora, bp, context, head_dim: int,
+                           capture: Capture = None, tensor_group=None):
+    """Cross-attention over the (B, M, C_ctx) context: (x plus what it
+    added of the pending residuals, the residuals left pending).
 
     M == 1: softmax over a single key is 1, so the output is W_o W_v context
     for every query (q, k and their norms drop out exactly, and so does the
@@ -220,7 +230,10 @@ def _cross_attention_block(x, emb, lora, bp, context, head_dim: int, capture: Ca
     from the modulated x and k, v from the context, per-head RMSNorm on q
     and k and no RoPE, then the plain fp32-softmax attention_xla (JAX calls
     it directly, outside any kernel; a key set this short gains nothing
-    from the flash kernels).  As in JAX it reports no capture sites."""
+    from the flash kernels).  As in JAX it reports no capture sites.
+
+    M == 1 reads nothing of x, so the pending residuals stay pending and
+    its (B, 1, D) output joins them, broadcast over L by the next norm."""
     shift, scale, gate = _adaln_chunks(emb, lora, bp, x.dtype)
     m = context.shape[1]
     ctx = _column_input(context, tensor_group)
@@ -230,8 +243,9 @@ def _cross_attention_block(x, emb, lora, bp, context, head_dim: int, capture: Ca
         v = _dense(ctx, bp["wv"])  # (B, 1, D / tensor)
         if capture is not None:
             capture("ca.wo", v)
-        return x + gate[:, None, :] * _row_output(v, bp["wo"], tensor_group)
-    xm = _column_input(modulate(layer_norm_no_affine(x), shift, scale), tensor_group)
+        return x, [*pending, (_row_output(v, bp["wo"], tensor_group), gate)]
+    x, xm = _fused.residual_ln_modulate(x, pending, shift, scale)
+    xm = _column_input(xm, tensor_group)
     b, l, _ = xm.shape
     # This rank's heads: all of them, or num_heads / tensor under a mesh.
     q = _dense(xm, bp["wq"]).reshape(b, l, -1, head_dim)
@@ -240,16 +254,18 @@ def _cross_attention_block(x, emb, lora, bp, context, head_dim: int, capture: Ca
     q = rms_norm(q, _head_shared(bp["q_norm"], tensor_group))
     k = rms_norm(k, _head_shared(bp["k_norm"], tensor_group))
     o = attention_xla(q, k, v).reshape(b, l, -1)
-    return x + gate[:, None, :] * _row_output(o, bp["wo"], tensor_group)
+    return x, [(_row_output(o, bp["wo"], tensor_group), gate)]
 
 
-def _mlp_block(x, emb, lora, bp, capture: Capture = None, token_chunks: int = 1,
+def _mlp_block(x, pending, emb, lora, bp, capture: Capture = None, token_chunks: int = 1,
                tensor_group=None) -> torch.Tensor:
-    """token_chunks > 1 (dividing L) runs the MLP on that many token chunks
-    in turn, bounding the (L, 4D) hidden activation; each token's MLP is
-    independent, so the result is the same.  As in JAX, the chunked MLP
-    reports no 'mlp.w2' capture site."""
-    (_, _, gate), xm = _adaln(x, emb, lora, bp)
+    """The block's output: x plus the pending residuals, then the MLP's own
+    gated residual (a call of its own).  token_chunks > 1 (dividing L) runs
+    the MLP on that many token chunks in turn, bounding the (L, 4D) hidden
+    activation; each token's MLP is independent, so the result is the same.
+    As in JAX, the chunked MLP reports no 'mlp.w2' capture site."""
+    shift, scale, gate = _adaln_chunks(emb, lora, bp, x.dtype)
+    x, xm = _fused.residual_ln_modulate(x, pending, shift, scale)
     if capture is not None:
         capture("mlp.w1", xm)
     xm = _column_input(xm, tensor_group)
@@ -265,7 +281,17 @@ def _mlp_block(x, emb, lora, bp, capture: Capture = None, token_chunks: int = 1,
         o = torch.cat([ff(xc, None) for xc in xm.chunk(token_chunks, dim=1)], dim=1)
     else:
         o = ff(xm, capture)
-    return x + gate[:, None, :] * o
+    return _fused.residual_ln_modulate(x, [(o, gate)])[0]
+
+
+def _settled(x, pending):
+    """(x, the residuals left pending).  Where the next norm takes the fused
+    kernel they wait for it; elsewhere (the CPU, the train step) they are
+    added here, where the op-by-op block always added them, so that the
+    plain path's ops, and its autograd graph and memory, stay in order."""
+    if pending and not _fused.takes_residual_kernel(x, pending):
+        return _fused.residual_ln_modulate_plain(x, pending, None, None)[0], []
+    return x, pending
 
 
 def block_apply(bp: Params, x, emb, lora, context, cos, sin, cfg: DiTConfig,
@@ -273,11 +299,12 @@ def block_apply(bp: Params, x, emb, lora, context, cos, sin, cfg: DiTConfig,
                 mlp_token_chunks: int = 1, tensor_group=None) -> torch.Tensor:
     """One FA -> CA -> MLP block.  tensor_group: the mesh's tensor group when
     bp holds this rank's Megatron shards (parallel/sharding.py)."""
-    x = _self_attention_block(x, emb, lora, bp["fa"], cos, sin, cfg.head_dim, attn_backend,
-                              capture, tensor_group)
-    x = _cross_attention_block(x, emb, lora, bp["ca"], context, cfg.head_dim, capture,
-                               tensor_group)
-    return _mlp_block(x, emb, lora, bp["mlp"], capture, mlp_token_chunks, tensor_group)
+    x, pending = _settled(*_self_attention_block(x, (), emb, lora, bp["fa"], cos, sin,
+                                                 cfg.head_dim, attn_backend, capture,
+                                                 tensor_group))
+    x, pending = _settled(*_cross_attention_block(x, pending, emb, lora, bp["ca"], context,
+                                                  cfg.head_dim, capture, tensor_group))
+    return _mlp_block(x, pending, emb, lora, bp["mlp"], capture, mlp_token_chunks, tensor_group)
 
 
 def make_block_apply(cfg: DiTConfig, attn_backend: AttnBackend = "auto",
@@ -475,7 +502,7 @@ def dit_forward(
     mod = adaln_modulation(affline_emb, fin["adaln_w1"], fin["adaln_w2"],
                            lora[:, : 2 * d])
     shift, scale = [c.to(dtype) for c in mod.chunk(2, dim=-1)]
-    out = F.linear(modulate(layer_norm_no_affine(tokens), shift, scale), fin["linear"])
+    out = F.linear(_fused.residual_ln_modulate(tokens, (), shift, scale)[1], fin["linear"])
     if mesh is not None:
         out = gather_tokens(out, mesh)
         if seq_sharding_constraint is not None:

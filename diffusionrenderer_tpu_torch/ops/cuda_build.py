@@ -20,7 +20,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("flash_attention", "quant_matmul", "flash_attention_int8", "flash_attention_wgmma")
+SOURCES = ("flash_attention", "quant_matmul", "flash_attention_int8", "flash_attention_wgmma",
+           "dit_fused")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -46,6 +46,7 @@ import torch
 from .config import RendererConfig, VAEConfig, get_config_by_model_type, validate_config
 from .models.dit import dit_forward
 from .models.vae import vae_decode, vae_encode
+from .ops import dit_fused as _df
 from .ops import flash_attention as _fa
 from .ops import quant_matmul as _qm
 from .parallel.sharding import batch_rows_split, batch_slice, gather_batch
@@ -203,7 +204,7 @@ def sample(dit_params, latent_condition: torch.Tensor, context_index: torch.Tens
 # The launch counters of the kernels' wrappers (plain Python integers, bumped
 # on the host where a wrapper launches): a capture bumps them once, a replay
 # never does.
-_LAUNCH_COUNTERS = (_fa.LAUNCHES, _fa.VARIANT_LAUNCHES, _qm.LAUNCHES)
+_LAUNCH_COUNTERS = (_fa.LAUNCHES, _fa.VARIANT_LAUNCHES, _qm.LAUNCHES, _df.LAUNCHES)
 
 # Every _GraphRunner's graphs, process-wide (plain Python numbers, bumped on
 # the host like the launch counters): graphs captured and replayed; graphs

@@ -27,7 +27,11 @@ attention launch (kernels 1 and 2 in one grid) at every head dim, and every
 public route takes a strided view.  The W8A8 matmul kernel is
 bitwise equal to its plain version per channel (exact int32 core, the same
 fp32 epilogue); grouped, within one bf16 ulp of max |plain| and a relative
-L2 error of 1e-3."""
+L2 error of 1e-3.  The DiT's fused norm chains (csrc/dit_fused.cu) round
+where their plain chains round: the residual stream bitwise, and every
+output one of those its plain chain gives with the LayerNorm or RMSNorm
+output rounded to nearest or to the neighbour toward the exact value (one
+bf16 ulp there: the fp32 sums' order)."""
 
 import math
 
@@ -37,6 +41,7 @@ import torch
 from diffusionrenderer_tpu_torch.config import DiTConfig
 from diffusionrenderer_tpu_torch.models.dit import dit_forward, init_dit_params
 from diffusionrenderer_tpu_torch.models.quant import quantize_dit_params, quantize_tensor
+from diffusionrenderer_tpu_torch.ops import dit_fused as tdf
 from diffusionrenderer_tpu_torch.ops import flash_attention as tfa
 from diffusionrenderer_tpu_torch.ops import quant_matmul as tqm
 from diffusionrenderer_tpu_torch.ops.attention import attention, attention_xla
@@ -1345,3 +1350,212 @@ def test_train_graph_capture_that_uploads_raises(cuda, monkeypatch):
     assert not step._graphs._graphs
     assert not any(p.requires_grad or p.grad is not None for p in tree_leaves(state.params))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The DiT's fused norm chains against their plain chains
+# ---------------------------------------------------------------------------
+
+# The inverse render's (5, 1024, 4096), the forward's batch 1 and a ragged
+# length; the pending residuals of each call site (the FA norm: none; the
+# general cross-attention's norm: the FA residual; the MLP norm after a
+# one-token cross-attention: the FA residual and a (B, 1, D) row; a row
+# alone; the MLP residual: one, no norm).
+FUSED_SHAPES = [(5, 1024, 4096), (1, 1024, 4096), (2, 37, 4096)]
+FUSED_CASES = {"norm": ((), True), "residual_norm": (("full",), True),
+               "two_residuals_norm": (("full", "row"), True), "row_residual_norm": (("row",), True),
+               "residual": (("full",), False)}
+
+
+def bf16_toward(t, z):
+    """The bf16 neighbour of t (bf16) on the side of z (float64), t itself
+    where z is t: what z rounds to when a sum in another order carries it
+    across the midpoint."""
+    td = t.double()
+    mag = td.abs().clamp_min(2.0 ** -126)
+    e = torch.floor(torch.log2(mag))
+    ulp = torch.exp2(e - 7)
+    up = z > td
+    toward_zero = up == (td < 0)
+    step = torch.where(toward_zero & (mag == torch.exp2(e)), ulp / 2, ulp)
+    n = torch.where(up, td + step, td - step)
+    return torch.where(z == td, td, n).to(torch.bfloat16)
+
+
+def rounded_both_ways(z):
+    t = z.to(torch.bfloat16)
+    return t, bf16_toward(t, z)
+
+
+def equal_bits_share(got, want) -> float:
+    return (got.view(torch.int16) == want.view(torch.int16)).double().mean().item()
+
+
+def fused_chain_inputs(device, shape, case, seed=0):
+    b, l, d = shape
+    g = torch.Generator(device).manual_seed(seed + l)
+
+    def r(*size, scale=1.0):
+        return (torch.randn(*size, generator=g, device=device) * scale).bfloat16()
+
+    residuals, norm = FUSED_CASES[case]
+    x = r(b, l, d, scale=2.0)
+    pending = [(r(b, l if kind == "full" else 1, d), r(b, d, scale=0.3)) for kind in residuals]
+    shift, scale = (r(b, d, scale=0.3), r(b, d, scale=0.3)) if norm else (None, None)
+    return x, pending, shift, scale
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_residual_ln_modulate_kernel_matches_plain(cuda, shape, case):
+    """x' bitwise; xm one of modulate's outputs for the LayerNorm output
+    rounded either way (exact statistics in float64), at most one bf16 ulp
+    of it, the same bits as the plain chain on all but a few elements."""
+    from diffusionrenderer_tpu_torch.ops.norms import modulate
+
+    x, pending, shift, scale = fused_chain_inputs(cuda, shape, case)
+    tdf.reset_counts()
+    got_x, got_xm = tdf.residual_ln_modulate_kernel(x, pending, shift, scale)
+    torch.cuda.synchronize()
+    assert tdf.LAUNCHES == {"residual_ln_modulate": 1, "qk_rmsnorm_rope": 0}
+    want_x, want_xm = tdf.residual_ln_modulate_plain(x, pending, shift, scale)
+    assert torch.equal(got_x, want_x)
+    if shift is None:
+        assert got_xm is None
+        return
+    xf = want_x.double()
+    centred = xf - xf.mean(-1, keepdim=True)
+    z = centred / torch.sqrt(centred.square().mean(-1, keepdim=True) + tdf.EPS)
+    allowed = [modulate(y, shift, scale) for y in rounded_both_ways(z)]
+    for out in (got_xm, want_xm):
+        assert ((out == allowed[0]) | (out == allowed[1])).all()
+    share = equal_bits_share(got_xm, want_xm)
+    print(f"residual_ln_modulate {shape} {case}: equal bits {share:.7f}")
+    assert share >= 0.999
+
+
+def rotate_half(y):
+    half = y.shape[-1] // 2
+    return torch.cat([-y[..., half:], y[..., :half]], dim=-1)
+
+
+@pytest.mark.parametrize("b,l,h", [(5, 1024, 32), (1, 1024, 32), (2, 37, 32), (5, 1024, 16),
+                                   (2, 37, 16)])
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32], ids=["w_bf16", "w_fp32"])
+def test_qk_rmsnorm_rope_kernel_matches_plain(cuda, b, l, h, w_dtype):
+    """q and k in one launch: each output one of the plain RoPE's for the
+    RMSNorm outputs (its own and its rotate-half partner's) rounded either
+    way, the same bits as the plain chain on all but a few elements; fp32
+    norm weights are the tensor-parallel form."""
+    from diffusionrenderer_tpu_torch.ops.rope import rope_3d_angles
+
+    g = torch.Generator(cuda).manual_seed(l + h)
+    q, k = (torch.randn(b, l, h, 128, generator=g, device=cuda).mul(3).bfloat16()
+            for _ in range(2))
+    wq, wk = ((1 + 0.1 * torch.randn(128, generator=g, device=cuda)).bfloat16().to(w_dtype)
+              for _ in range(2))
+    grid = (1, 32, 32) if l == 1024 else (1, 1, l)
+    angles = rope_3d_angles(*grid, 128, device=cuda)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    tdf.reset_counts()
+    got = tdf.qk_rmsnorm_rope_kernel(q, k, wq, wk, cos, sin)
+    torch.cuda.synchronize()
+    assert tdf.LAUNCHES == {"residual_ln_modulate": 0, "qk_rmsnorm_rope": 1}
+    want = tdf.qk_rmsnorm_rope_plain(q, k, wq, wk, cos, sin)
+    cb = cos.bfloat16()[None, :, None, :]
+    sb = sin.bfloat16()[None, :, None, :]
+    for x, w, got_t, want_t in zip((q, k), (wq, wk), got, want):
+        xf = x.double()
+        z = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + tdf.EPS) * w.double()
+        ys = rounded_both_ways(z)
+        allowed = [y * cb + rotate_half(p) * sb for y in ys for p in ys]
+        for out in (got_t, want_t):
+            assert torch.stack([out == a for a in allowed]).any(0).all()
+        share = equal_bits_share(got_t, want_t)
+        print(f"qk_rmsnorm_rope {(b, l, h)} {w_dtype}: equal bits {share:.7f}")
+        assert share >= 0.999
+
+
+def test_fused_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(2, 8, 4096, device=cuda, dtype=torch.bfloat16)
+    row = torch.zeros(2, 4096, device=cuda, dtype=torch.bfloat16)
+    tdf.reset_counts()
+    with pytest.raises(ValueError):  # nothing to do
+        tdf.residual_ln_modulate_kernel(x, [], None, None)
+    narrow = x[..., :4092].contiguous()
+    with pytest.raises(ValueError):  # D % 8
+        tdf.residual_ln_modulate_kernel(narrow, [], row[:, :4092].contiguous(),
+                                        row[:, :4092].contiguous())
+    with pytest.raises(ValueError):  # a residual of another length
+        tdf.residual_ln_modulate_kernel(x, [(x[:, :3].contiguous(), row)], row, row)
+    with pytest.raises(TypeError):
+        tdf.residual_ln_modulate_kernel(x.float(), [], row, row)
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    table = torch.zeros(8, 64, device=cuda)
+    with pytest.raises(ValueError):  # head dim 64
+        tdf.qk_rmsnorm_rope_kernel(q, q, q[0, 0, 0], q[0, 0, 0], table, table)
+    assert sum(tdf.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("m", [1, 8], ids=["one_token_context", "crossattn_emb_8"])
+def test_dit_forward_fused_vs_plain_chains(cuda, monkeypatch, m):
+    """Two full-width blocks on the card: the fused chains against the plain
+    ones (the rule pointed away from the card), to the DiT's kernel
+    tolerance; 3 (4 with a general cross-attention) residual_ln_modulate
+    launches a block and the final layer's, one qk_rmsnorm_rope a block."""
+    cfg = DiTConfig(num_blocks=2)
+    params = init_dit_params(cfg, device=cuda, dtype=torch.bfloat16, seed=0)
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn(5, 1, 64, 64, 16, generator=g, device=cuda).bfloat16()
+    cond = torch.randn(5, 1, 64, 64, 16, generator=g, device=cuda).bfloat16()
+    sig = torch.tensor([3.0, 0.5, 80.0, 1.0, 0.1], device=cuda)
+    ctx = torch.tensor([0, 1, 2, 3, 4], device=cuda)
+    emb = None if m == 1 else torch.randn(5, m, cfg.crossattn_emb_channels, generator=g,
+                                          device=cuda).bfloat16()
+
+    def run():
+        with torch.inference_mode():
+            return dit_forward(params, x, sig, cond, ctx, cfg, crossattn_emb=emb)
+
+    tdf.reset_counts()
+    got = run()
+    assert tdf.LAUNCHES == {"residual_ln_modulate": (3 if m == 1 else 4) * cfg.num_blocks + 1,
+                            "qk_rmsnorm_rope": cfg.num_blocks}
+    monkeypatch.setattr(tdf, "KERNEL_DEVICE", "plain chains only")
+    tdf.reset_counts()
+    want = run()
+    assert sum(tdf.LAUNCHES.values()) == 0
+    assert_close(got, want)
+
+
+def test_step_graph_counts_fused_launches_per_replay(cuda):
+    """inverse_render through the captured and the replayed step graph and
+    eagerly: 3 x blocks + 1 residual_ln_modulate and blocks qk_rmsnorm_rope
+    launches per DiT forward each time, and the same bits."""
+    import numpy as np
+
+    pipe = step_graph_pipe("bf16")
+    image = np.random.default_rng(4).integers(0, 256, (1, 256, 256, 3), dtype=np.uint8)
+    blocks = SURFACE_NET["num_blocks"]
+    outs = []
+    for eager in (False, False, True):  # capture, replay, eager
+        tdf.reset_counts()
+        out, _, _ = render_counted(pipe, image, 0.0, eager=eager)
+        assert tdf.LAUNCHES == {"residual_ln_modulate": pipe.num_steps * (3 * blocks + 1),
+                                "qk_rmsnorm_rope": pipe.num_steps * blocks}, eager
+        outs.append(out)
+    for name in outs[0]:
+        assert np.array_equal(outs[0][name], outs[1][name])
+        assert np.array_equal(outs[0][name], outs[2][name])
+
+
+def test_train_step_launches_no_fused_kernel(cuda):
+    """The train step runs under autograd: its first (eager) step and its
+    replayed ones take the plain chains, no fused launch."""
+    cfg, state, step, batch_fn = tiny_train_setup(cuda)
+    for i in range(3):
+        tdf.reset_counts()
+        state, loss = step(state, batch_fn(i), torch.Generator(cuda).manual_seed(i))
+        torch.cuda.synchronize()
+        assert tdf.LAUNCHES == {"residual_ln_modulate": 0, "qk_rmsnorm_rope": 0}, i
+    assert len(step._graphs._graphs) == 1
